@@ -2,6 +2,7 @@
 channel_pruning_tpu/cli.py).
 
     python -m channel_pruning_tpu_torch.cli prune --model vgg16 --speed 5.0
+    python -m channel_pruning_tpu_torch.cli prune --model resnet50 --speed 2.0
 
 Loads a registry model (random He-init weights, or `--weights` through the
 shared Caffe codec), freezes a synthetic calibration set, prunes every
@@ -61,22 +62,24 @@ def _build_config(args):
 
 
 def _targets(graph, args, cfg):
+    """(producer-keyed channel targets, consumer-keyed gate targets or None,
+    config)."""
+    from channel_pruning_tpu.models.resnet import resnet50_2x_targets
     from channel_pruning_tpu.models.vgg import VGG16_5X_CHANNELS
     from channel_pruning_tpu_torch.pipeline import c3
 
+    bottom = cfg.replace_nested("solve.band", "bottom")
     if args.channels:
-        return json.loads(Path(args.channels).read_text()), \
-            cfg.replace_nested("solve.band", "bottom")
+        return json.loads(Path(args.channels).read_text()), None, bottom
+    # released-structure tables: the channel counts are the ground truth,
+    # so land on them instead of the top of the band
     if "vgg" in graph.name and len(graph.convs) == 13 \
             and abs(args.speed - 5.0) < 1e-6:
-        # released-structure table: the channel counts are the ground
-        # truth, so land on them instead of the top of the band
-        return VGG16_5X_CHANNELS, cfg.replace_nested("solve.band", "bottom")
+        return VGG16_5X_CHANNELS, None, bottom
     if "resnet50" in graph.name and abs(args.speed - 2.0) < 1e-6:
-        raise NotImplementedError("the ResNet-50 2x table needs gate-only "
-                                  "consumers and RollingReplayDAG, not ported")
+        return (*resnet50_2x_targets(), bottom)
     return c3.plan_uniform_targets(graph, args.speed,
-                                   rank_tol=cfg.dic.rank_tol), cfg
+                                   rank_tol=cfg.dic.rank_tol), None, cfg
 
 
 def cmd_prune(args):
@@ -107,7 +110,7 @@ def cmd_prune(args):
           f"{flops.total_flops(graph):,} mults; device {device}{card}")
 
     graph, params = c3.preprocess(graph, params)
-    targets, cfg = _targets(graph, args, cfg)
+    targets, input_targets, cfg = _targets(graph, args, cfg)
     c3.check_supported(graph, cfg)          # before the freeze, not after
     inputs = SyntheticInputs(n_batches=args.cal_batches, bs=args.cal_batch,
                              sample_shape=tuple(graph.inputs[0].shape[1:]),
@@ -138,7 +141,8 @@ def cmd_prune(args):
     t = time.perf_counter()
     ck = SolveCheckpoint(wd / "solve_state_cp.pkl", every=3)
     res = c3.solve_prune(graph, params, cache, cfg, channel_targets=targets,
-                         device=device, checkpoint=ck)
+                         input_targets=input_targets, device=device,
+                         checkpoint=ck)
     phases["solve"] = time.perf_counter() - t
     print(res.summary())
     orig = flops.total_flops(graph, include_fc=False)

@@ -8,9 +8,10 @@ sampled from the net with all earlier layers already pruned); `g_out`, the
 output graph, is physically pruned with pure rewrites. Ground-truth targets
 always come from the frozen cache of the original net.
 
-Ported: `preprocess` and the SEQUENTIAL `solve_prune` loop on chain graphs
-with the rolling frontier. Not yet: the pipelined pass, residual
-compensation and DAG frontier (ResNet), fitfc, and the 3C solver.
+Ported: `preprocess` and the SEQUENTIAL `solve_prune` loop, on chain graphs
+with the rolling frontier and on residual graphs with the DAG frontier,
+Select gates (`input_targets`) and residual compensation. Not yet: the
+pipelined pass, fitfc, and the 3C solver.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from channel_pruning_tpu.graph import rewrite
-from channel_pruning_tpu.graph.ir import Graph
+from channel_pruning_tpu.graph.ir import Graph, LT
 from channel_pruning_tpu.utils.config import Config
 from channel_pruning_tpu_torch.convert import params_to_torch
 from channel_pruning_tpu_torch.pipeline import prune as prune_mod
@@ -50,6 +51,7 @@ class LayerReport:
     seconds: float = 0.0
     replay_seconds: float = 0.0
     solve_seconds: float = 0.0
+    kind: str = "prune"       # "gate": a Select gate in front of the consumer
 
 
 @dataclass
@@ -168,11 +170,26 @@ def plan_uniform_targets(graph: Graph, speed_ratio: float,
 def _maybe_rolling(g_run: Graph, cache: sampling.FrozenCache, device,
                    budget: int = 8 << 30):
     """The O(L) rolling frontier when the whole-set activation cut fits the
-    budget; None means full replays per layer."""
+    budget: the chain variant for plain nets, the DAG-cut variant for
+    residual topologies. None means full replays per layer."""
     n_images = cache.n_batches * cache.batch_size
-    if rolling_mod.estimate_peak_bytes(g_run, n_images) > budget:
+    if rolling_mod.is_chain(g_run):
+        if rolling_mod.estimate_peak_bytes(g_run, n_images) > budget:
+            return None
+        return rolling_mod.RollingReplay(g_run, cache.inputs, device=device)
+    if rolling_mod.estimate_cut_bytes(g_run, n_images) > budget:
         return None
-    return rolling_mod.RollingReplay(g_run, cache.inputs, device=device)
+    return rolling_mod.RollingReplayDAG(g_run, cache.inputs, device=device)
+
+
+def _residual_context(g_run: Graph, consumer_top: str):
+    """If `consumer_top` feeds an Eltwise sum, return (eltwise top, other
+    bottom tensors): the residual-compensation context (reference appresb,
+    lib/net.py:1641-1683)."""
+    for e in g_run.by_type(LT.ELTWISE):
+        if consumer_top in e.bottoms and e.attr("operation", "sum") == "sum":
+            return e.tops[0], tuple(b for b in e.bottoms if b != consumer_top)
+    return None, ()
 
 
 def check_supported(graph: Graph, cfg: Config) -> None:
@@ -189,36 +206,55 @@ def check_supported(graph: Graph, cfg: Config) -> None:
         unported.append("solve.autodet")
     if cfg.dic.fitfc:
         unported.append("dic.fitfc")
-    if not rolling_mod.is_chain(graph):
-        unported.append("residual topologies (RollingReplayDAG, gates and "
-                        "residual compensation)")
     if unported:
         raise NotImplementedError("not ported yet: " + "; ".join(unported))
 
 
+def _ground_truth(feats_dev: dict[str, torch.Tensor],
+                  cache: sampling.FrozenCache, tensor: str, device
+                  ) -> torch.Tensor:
+    """The frozen ground truth of `tensor` on the device, uploaded once per
+    solve."""
+    if tensor not in feats_dev:
+        feats_dev[tensor] = torch.as_tensor(
+            np.asarray(cache.feats[tensor], np.float32)).to(device)
+    return feats_dev[tensor]
+
+
 def solve_prune(graph: Graph, params: Mapping[str, Mapping[str, np.ndarray]],
                 cache: sampling.FrozenCache, cfg: Config,
-                channel_targets: Mapping[str, int], *, device,
+                channel_targets: Mapping[str, int] | None = None,
+                input_targets: Mapping[str, int] | None = None,
+                residual_compensate: bool = True, *, device,
                 checkpoint=None, verbose: bool = True) -> SolveResult:
-    """Sequential whole-model channel pruning on a chain graph.
+    """Sequential whole-model channel pruning.
 
-    `channel_targets` maps a PRODUCER conv to its surviving output-channel
-    count (e.g. models.vgg.VGG16_5X_CHANNELS): the producer is pruned by
-    LASSO-selecting its consumer's input channels and physically shrunk.
+    * `channel_targets` maps a PRODUCER conv to its surviving output-channel
+      count (e.g. models.vgg.VGG16_5X_CHANNELS): the producer is pruned by
+      LASSO-selecting its consumer's input channels and physically shrunk.
+    * `input_targets` maps a CONSUMER conv to its surviving input count
+      where the producer cannot shrink (residual junctions): a Select gate
+      goes in front of the consumer instead.
+    * With `residual_compensate`, a consumer feeding an Eltwise sum is fit
+      against gt(block) - b - current(other bottoms), so the whole block
+      output is reconstructed.
+
     `checkpoint` is a shared pipeline.checkpoint.SolveCheckpoint; its
     writes are asynchronous, so an exception joins the one in flight before
     it propagates (the last completed layer is on disk for the resume)."""
     try:
         return _solve_prune(graph, params, cache, cfg, channel_targets,
-                            device, checkpoint, verbose)
+                            input_targets, residual_compensate, device,
+                            checkpoint, verbose)
     except BaseException:
         if checkpoint is not None:
             checkpoint.wait()
         raise
 
 
-def _solve_prune(graph, params, cache, cfg, channel_targets, device,
-                 checkpoint, verbose) -> SolveResult:
+def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
+                 residual_compensate, device, checkpoint,
+                 verbose) -> SolveResult:
     check_supported(graph, cfg)
     device = torch.device(device)
     g_run = graph
@@ -249,11 +285,19 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, device,
     roll = _maybe_rolling(g_run, cache, device)
 
     for i, consumer in enumerate(g_run.convs):
-        if i <= resume_i or i == 0:
+        if i <= resume_i:
             continue
         bottom = g_run.layer(consumer).bottoms[0]
         producer = prune_mod.producer_conv(g_run, bottom, before=consumer)
-        target = channel_targets.get(producer) if producer is not None else None
+        # the JAX package's order: a gate target first; the first conv is
+        # skipped only as a channel target
+        target = None
+        gate_only = False
+        if input_targets is not None and consumer in input_targets:
+            target = input_targets[consumer]
+            gate_only = True
+        elif channel_targets is not None and producer is not None and i > 0:
+            target = channel_targets.get(producer)
         if target is None:
             continue
         n_in = p_run[consumer]["W"].shape[1]
@@ -273,13 +317,33 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, device,
                                         cache.plan, device=device,
                                         chunk_batches=chunk)
         top = g_run.layer(consumer).tops[0]
-        b2 = p_run[consumer].get("b", np.zeros(p_run[consumer]["W"].shape[0],
-                                               np.float32))
-        if top not in feats_dev:
-            feats_dev[top] = torch.as_tensor(
-                np.asarray(cache.feats[top], np.float32)).to(device)
-        Y = feats_dev[top] - torch.as_tensor(np.asarray(b2, np.float32),
-                                             device=device)
+        b2 = torch.as_tensor(np.asarray(p_run[consumer].get(
+            "b", np.zeros(p_run[consumer]["W"].shape[0], np.float32)),
+            np.float32), device=device)
+        e_top, others = (_residual_context(g_run, top) if residual_compensate
+                         else (None, ()))
+        if e_top is not None and e_top in cache.feats:
+            # fit the branch so the BLOCK output matches ground truth:
+            # Y = gt(block) - b - sum of current(other bottoms), in f32 on
+            # the device, in the JAX package's order
+            cur = None
+            if roll is not None:
+                try:
+                    cur = {o: roll.features_at(dev_run, cache.plan, o,
+                                               device=True) for o in others}
+                except rolling_mod.FrontierError as exc:
+                    print(f"[rolling] features fallback for {consumer}: {exc}")
+                    frontier_fallbacks.append(f"{consumer}(features)")
+            if cur is None:
+                cur = {o: torch.as_tensor(v).to(device) for o, v in
+                       sampling.sample_features(
+                           g_run, dev_run, cache.inputs, cache.plan, others,
+                           device=device, chunk_batches=chunk).items()}
+            Y = _ground_truth(feats_dev, cache, e_top, device) - b2
+            for o in others:
+                Y = Y - cur[o]
+        else:
+            Y = _ground_truth(feats_dev, cache, top, device) - b2
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t_solve = time.perf_counter()
@@ -296,16 +360,18 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, device,
         p_run[consumer] = {"W": _scatter_inputs(res.W, res.keep), "b": res.b}
         dev_run[consumer] = params_to_torch({consumer: p_run[consumer]},
                                             device)[consumer]
-        # output graph: physical shrink of the producer
-        g_out, p_out = prune_mod.apply_pruning(g_out, p_out, consumer, res)
+        # output graph: physical shrink, or a Select gate at junctions
+        g_out, p_out = prune_mod.apply_pruning(
+            g_out, p_out, consumer, res, shrink_producer=not gate_only)
         selections[consumer] = res.keep
         reports.append(LayerReport(
             conv=consumer, kept=int(res.keep.sum()), total=int(n_in),
             alpha=res.alpha, rmse_before=res.rmse_before,
             rmse_after=res.rmse_after, seconds=t_end - t0,
-            replay_seconds=t_solve - t0, solve_seconds=t_end - t_solve))
+            replay_seconds=t_solve - t0, solve_seconds=t_end - t_solve,
+            kind="gate" if gate_only else "prune"))
         if verbose:
-            print(f"[prune] {consumer}: keep {int(res.keep.sum())}/{n_in} "
+            print(f"[{reports[-1].kind}] {consumer}: keep {int(res.keep.sum())}/{n_in} "
                   f"rMSE {res.rmse_before:.4f}->{res.rmse_after:.4f} "
                   f"({t_end - t0:.2f}s = replay {t_solve - t0:.2f} + solve "
                   f"{t_end - t_solve:.2f})", flush=True)

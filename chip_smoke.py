@@ -6,12 +6,19 @@ NVIDIA card:
 
 Phases, each printing its own lines; any failure raises (exit code != 0):
   1. the card: torch.cuda must be available; nvidia-smi name and power limit;
-  2. build the LASSO CD kernel (csrc/lasso_cd.cu) from the checkout;
-  3. the kernel against its plain PyTorch version on the card at c = 256
+  2. build the LASSO CD kernels K1 and K2 (csrc/lasso_cd.cu) from the
+     checkout, and print ptxas's registers / shared memory per kernel;
+  3. K1 against its plain PyTorch version on the card at c = 256
      and c = 512 with a 32-alpha grid: identical supports, betas within
      rtol 1e-5 / atol 1e-6; times from CUDA events;
+  3b. K2 against the plain version at c = 2048 and c = 4096 (1x1 patches,
+     the shape of a res5 gate), 32 alphas, over 3 sweeps (a full plain grid
+     at c = 2048 takes about a minute): identical supports, max|K2-plain|
+     = 0; then K2's time over the full 200 sweeps; and K2 against K1 at
+     c = 512 and c = 1024 with full sweeps: equal bit for bit;
   4. the port on the card against the port on the CPU on the tiny VGG:
-     identical selections;
+     identical selections; the same on the tiny ResNet (Select gates,
+     residual compensation, DAG frontier, band=bottom);
   5. the main path, `cli prune --model vgg16 --mode prune --speed 5.0
      --device cuda` with its defaults (50 x 10 synthetic calibration
      images, random He-init weights): keep counts equal the released 5x
@@ -21,7 +28,15 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
      and are held to fixed bounds near their observed values), the kernel
      was launched, and the exported model reloads and runs to finite
      probabilities that sum to 1;
-  6. with --profile only: the main path once more under torch.profiler,
+  5b. the second main path, `cli prune --model resnet50 --mode prune
+     --speed 2.0 --device cuda` with its defaults: all 32 branch2a/2b widths
+     inside the released band [t, round(1.1 t)] (tools/band_check.py's
+     rule), 16 Select gates with keep counts inside the same band against
+     the released Filter table, K2 (res5b/res5c gates, c = 2048) and K1
+     both launched, every rMSE finite (on random weights after < before
+     does not hold in the JAX package either), and the exported model
+     reloads and gives probabilities;
+  6. with --profile only: each main path once more under torch.profiler,
      with the device's busy time, idle share and top kernels.
 The next-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}. Nothing of JAX or of the JAX package is
@@ -52,17 +67,18 @@ def _card_line() -> str:
     return out.stdout.strip()
 
 
-def _cd_problem(seed: int, c: int, device):
-    """A LASSO Gram at main-path shape: Z from post-ReLU 3x3 patches of 250
-    rows (the layer's row subsample) against He-init consumer weights."""
+def _cd_problem(seed: int, c: int, device, k: int = 3, n: int | None = None):
+    """A LASSO Gram at main-path shape: Z from post-ReLU k x k patches of 250
+    rows (the layer's row subsample) against He-init weights of an n-wide
+    consumer (n = c by default)."""
     import torch
 
     from channel_pruning_tpu_torch.ops import lasso
 
     rng = np.random.default_rng(seed)
-    n = c
-    X = np.maximum(rng.normal(size=(250, c, 3, 3)), 0).astype(np.float32)
-    W2 = (rng.normal(size=(n, c, 3, 3)) * np.sqrt(2.0 / (9 * c))).astype(np.float32)
+    n = c if n is None else n
+    X = np.maximum(rng.normal(size=(250, c, k, k)), 0).astype(np.float32)
+    W2 = (rng.normal(size=(n, c, k, k)) * np.sqrt(2.0 / (k * k * c))).astype(np.float32)
     Xd, Wd = torch.from_numpy(X).to(device), torch.from_numpy(W2).to(device)
     Z = lasso.build_channel_response(Xd, Wd)
     y = Z.sum(dim=1) + 0.05 * torch.from_numpy(
@@ -112,7 +128,58 @@ def phase_kernel_vs_plain(device) -> dict:
         print(f"[kernel] c={c} A=32: supports {min(sizes)}..{max(sizes)} "
               f"identical; max|kernel-plain| {err:.3e}; kernel {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms", flush=True)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "c": 512, "n_sweeps": 200}
+
+
+def phase_stream_vs_plain(device) -> dict:
+    """K2, through the dispatch, against the plain version over 3 sweeps at
+    c = 2048 (res5b/res5c) and c = 4096, then K2 alone over the full 200
+    sweeps; K2 against K1 at c <= 1024. The returned times are those at
+    c = 2048."""
+    import torch
+
+    from channel_pruning_tpu_torch.kernels import lasso_cd
+    from channel_pruning_tpu_torch.ops import lasso
+
+    worst, stats = 0.0, {}
+    for seed, c in ((2, 2048), (3, 4096)):
+        gram, alphas = _cd_problem(seed, c, device, k=1, n=512)
+        before = (lasso_cd.LAUNCHES, lasso_cd.LAUNCHES_STREAM)
+        lasso_cd.cd_solve_grid(gram.G, gram.b, alphas, n_sweeps=3)       # warm-up
+        ms3, got = _time_ms(
+            lambda: lasso_cd.cd_solve_grid(gram.G, gram.b, alphas, n_sweeps=3), 5)
+        if (lasso_cd.LAUNCHES, lasso_cd.LAUNCHES_STREAM) != (before[0], before[1] + 6):
+            raise AssertionError(f"c={c}: the dispatch did not launch K2 alone")
+        plain3, ref = _time_ms(lambda: lasso_cd.cd_solve_grid_plain(
+            gram.G, gram.b, alphas, n_sweeps=3), 1)
+        if not torch.equal(lasso.support_mask(got), lasso.support_mask(ref)):
+            raise AssertionError(f"c={c}: K2 and plain supports differ")
+        err = float((got - ref).abs().max())
+        if err != 0.0:
+            raise AssertionError(f"c={c}: max|K2-plain| = {err}, want 0")
+        worst = max(worst, err)
+        ms200, full = _time_ms(lambda: lasso_cd.cd_solve_grid(gram.G, gram.b, alphas), 5)
+        sizes = lasso.support_sizes(full).cpu().tolist()
+        print(f"[kernel] K2 c={c} A=32: 3 sweeps: supports identical, "
+              f"max|K2-plain| {err:.1e}, K2 {ms3:.3f} ms, plain {plain3:.3f} ms; "
+              f"200 sweeps: K2 {ms200:.3f} ms (supports {min(sizes)}..{max(sizes)})",
+              flush=True)
+        stats[c] = (ms3, plain3, ms200)
+        del gram, alphas, got, ref, full
+    for seed, c in ((1, 512), (4, 1024)):
+        gram, alphas = _cd_problem(seed, c, device)
+        k1 = lasso_cd.cd_solve_grid(gram.G, gram.b, alphas)
+        k2 = lasso_cd.cd_solve_grid_stream(gram.G, gram.b, alphas)
+        torch.cuda.synchronize()
+        if not torch.equal(k1, k2):
+            raise AssertionError(f"c={c}: K2 differs from K1 by "
+                                 f"{float((k1 - k2).abs().max())}")
+        print(f"[kernel] K2 = K1 bit for bit at c={c} A=32, 200 sweeps", flush=True)
+    ms3, plain3, ms200 = stats[2048]
+    return {"max_abs_err": worst, "ms": ms3, "plain_ms": plain3, "c": 2048,
+            "n_sweeps": 3, "ms_200_sweeps": ms200,
+            "ms_200_sweeps_c4096": stats[4096][2]}
 
 
 def phase_tiny_vgg(device) -> None:
@@ -142,6 +209,43 @@ def phase_tiny_vgg(device) -> None:
           f"{len(sel['cpu'])} layers", flush=True)
 
 
+def phase_tiny_resnet(device) -> None:
+    """Gates on every block input and shrink targets on branch2a/2b, as in
+    tests/test_resnet_pipeline.py, band=bottom: card and CPU select alike."""
+    import torch
+
+    from channel_pruning_tpu_torch.convert import params_to_torch
+    from channel_pruning_tpu_torch.pipeline import c3
+    from channel_pruning_tpu_torch.sampling import sampler
+    from channel_pruning_tpu_torch.shared import (LT, build_tiny_resnet,
+                                                  default_config)
+
+    g, p = c3.preprocess(*build_tiny_resnet(batch=4, image_size=32))
+    inputs = np.random.default_rng(11).normal(0, 1, (8, 4, 3, 32, 32)).astype(np.float32)
+    cfg = default_config().replace_nested("solve.fused_search", False) \
+        .replace_nested("solve.band", "bottom")
+    ct = {c: max(2, int(int(g.layer(c).attr("num_output")) * 0.7))
+          for c in g.convs if c.endswith(("branch2a", "branch2b"))}
+    it = {c: max(2, int(p[c]["W"].shape[1] * 0.7))
+          for c in g.convs if c.endswith("branch2a")}
+    res = {}
+    for dev in (device, torch.device("cpu")):
+        cache = sampler.freeze(g, params_to_torch(p, dev), inputs, device=dev,
+                               n_points=8, seed=0, chunk_batches=4,
+                               share_key=sampler.resnet_share_key(g))
+        res[dev.type] = c3.solve_prune(g, p, cache, cfg, channel_targets=ct,
+                                       input_targets=it, device=dev, verbose=False)
+    sel = {k: r.selections for k, r in res.items()}
+    if sel["cuda"].keys() != sel["cpu"].keys() or any(
+            not np.array_equal(sel["cuda"][k], sel["cpu"][k]) for k in sel["cpu"]):
+        raise AssertionError(f"tiny ResNet selections differ: {sel}")
+    gates = len(res["cuda"].graph.by_type(LT.SELECT))
+    if gates != len(it):
+        raise AssertionError(f"{gates} Select gates, want {len(it)}")
+    print(f"[tiny_resnet] card and CPU select identically in "
+          f"{len(sel['cpu'])} layers ({gates} Select gates)", flush=True)
+
+
 def _prune_vgg16(work: Path):
     from channel_pruning_tpu_torch import cli
 
@@ -151,8 +255,17 @@ def _prune_vgg16(work: Path):
                      "--work-dir", str(work)])
 
 
-def phase_profile(wall: float) -> None:
-    """`--profile`: the main path once more under torch.profiler (device
+def _prune_resnet50(work: Path):
+    from channel_pruning_tpu_torch import cli
+
+    shutil.rmtree(work, ignore_errors=True)
+    return cli.main(["prune", "--model", "resnet50", "--mode", "prune",
+                     "--speed", "2.0", "--device", "cuda",
+                     "--work-dir", str(work)])
+
+
+def phase_profile(label: str, prune, wall: float) -> None:
+    """`--profile`: a main path once more under torch.profiler (device
     activity only). Device busy time is the sum of the kernels' and copies'
     self device times; the idle share is given against the profiled run's
     wall and against the unprofiled main-path run's wall."""
@@ -161,7 +274,7 @@ def phase_profile(wall: float) -> None:
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _prune_vgg16(WORK / "vgg16_profiled")
+        prune(WORK / f"{label}_profiled")
         torch.cuda.synchronize()
         pwall = time.perf_counter() - t0
     rows = sorted(((e.self_device_time_total / 1e6, e.count, e.key)
@@ -170,14 +283,14 @@ def phase_profile(wall: float) -> None:
     busy = sum(r[0] for r in rows)
     if busy <= 0:
         raise AssertionError("the profiler recorded no device time")
-    print(f"[profile] device busy {busy:.3f}s; profiled wall {pwall:.2f}s "
-          f"(idle {1 - busy / pwall:.1%}); unprofiled wall {wall:.2f}s "
-          f"(idle {1 - busy / wall:.1%})")
+    print(f"[profile] {label}: device busy {busy:.3f}s; profiled wall "
+          f"{pwall:.2f}s (idle {1 - busy / pwall:.1%}); unprofiled wall "
+          f"{wall:.2f}s (idle {1 - busy / wall:.1%})")
     for s, n, key in rows[:10]:
-        print(f"[profile] {s:8.3f}s {100 * s / busy:5.1f}% {n:6d}x {key[:100]}")
+        print(f"[profile] {label} {s:8.3f}s {100 * s / busy:5.1f}% {n:6d}x {key[:100]}")
 
 
-def phase_main_path(device) -> tuple[int, float]:
+def phase_main_path(device) -> tuple[dict[str, int], float]:
     import torch
 
     from channel_pruning_tpu_torch.convert import params_to_torch
@@ -190,11 +303,11 @@ def phase_main_path(device) -> tuple[int, float]:
 
     work = WORK / "vgg16"
     torch.cuda.reset_peak_memory_stats(device)
-    lasso_cd.LAUNCHES = 0
+    lasso_cd.LAUNCHES = lasso_cd.LAUNCHES_STREAM = 0
     t0 = time.perf_counter()
     res = _prune_vgg16(work)
     wall = time.perf_counter() - t0
-    launches = lasso_cd.LAUNCHES
+    launches = {"k1": lasso_cd.LAUNCHES, "k2": lasso_cd.LAUNCHES_STREAM}
     peak = torch.cuda.max_memory_allocated(device)
 
     pruned = {p: t for p, t in VGG16_5X_CHANNELS.items() if t < 512}
@@ -213,7 +326,7 @@ def phase_main_path(device) -> tuple[int, float]:
         if not (r.rmse_after < bound and np.isfinite(r.rmse_after)):
             raise AssertionError(f"{r.conv}: rMSE {r.rmse_before} -> "
                                  f"{r.rmse_after}, bound {bound}")
-    if launches <= 0:
+    if launches["k1"] <= 0:
         raise AssertionError("the main path never launched the CD kernel")
 
     g, p = import_model(work / "cp_vgg16.prototxt", work / "cp_vgg16.caffemodel")
@@ -233,9 +346,96 @@ def phase_main_path(device) -> tuple[int, float]:
               f"{r.rmse_after:.4f}      {r.replay_seconds:7.3f}  {r.solve_seconds:7.3f}")
     print("[main] wall " + " ".join(f"{k} {v:.2f}s" for k, v in res.wall.items())
           + f"; total {wall:.2f}s; conv mults {orig:,} -> {new:,} "
-          f"({orig / new:.2f}x); kernel launches {launches}; "
+          f"({orig / new:.2f}x); kernel launches K1 {launches['k1']} "
+          f"K2 {launches['k2']}; "
           f"peak device memory {peak / 2**30:.2f} GiB; exported model reloads, "
           f"probabilities sum to 1", flush=True)
+    return launches, wall
+
+
+def _check_band(name: str, target: int, got, tol: float = 0.1) -> bool:
+    """tools/band_check.py's rule: target <= got <= round(target * 1.1)."""
+    return got is not None and target <= got <= int(round(target * (1 + tol)))
+
+
+def phase_resnet50(device) -> tuple[dict[str, int], float]:
+    """The ResNet-50 2x main path through the CLI with its defaults."""
+    import torch
+
+    from channel_pruning_tpu_torch.convert import params_to_torch
+    from channel_pruning_tpu_torch.kernels import lasso_cd
+    from channel_pruning_tpu_torch.ops.forward import run_graph
+    from channel_pruning_tpu_torch.sampling.inputs import SyntheticInputs
+    from channel_pruning_tpu_torch.shared import (LT, RESNET50_2X_BRANCH2A,
+                                                  RESNET50_2X_BRANCH2B,
+                                                  RESNET50_2X_FILTERS,
+                                                  build_resnet50, import_model,
+                                                  total_flops)
+
+    work = WORK / "resnet50"
+    torch.cuda.reset_peak_memory_stats(device)
+    lasso_cd.LAUNCHES = lasso_cd.LAUNCHES_STREAM = 0
+    t0 = time.perf_counter()
+    res = _prune_resnet50(work)
+    wall = time.perf_counter() - t0
+    launches = {"k1": lasso_cd.LAUNCHES, "k2": lasso_cd.LAUNCHES_STREAM}
+    peak = torch.cuda.max_memory_allocated(device)
+
+    print("[resnet50] layer            kind  keep       rMSE before -> after   replay s  solve s")
+    for r in res.reports:
+        print(f"[resnet50] {r.conv:<16s} {r.kind:<5s} {r.kept:>4d}/{r.total:<4d} "
+              f"{r.rmse_before:.4f} -> {r.rmse_after:.4f}      "
+              f"{r.replay_seconds:7.3f}  {r.solve_seconds:7.3f}")
+    failures = []
+    if len(res.reports) != 40:
+        failures.append(f"{len(res.reports)} layers solved, want 40")
+    bad = [r.conv for r in res.reports
+           if not (np.isfinite(r.rmse_before) and np.isfinite(r.rmse_after))]
+    if bad:
+        failures.append(f"rMSE not finite in {bad}")
+    wide = sorted(r.conv for r in res.reports if r.total > lasso_cd.MAX_C)
+    if wide != ["res5b_branch2a", "res5c_branch2a"] or launches["k2"] <= 0:
+        failures.append(f"K2 launches {launches['k2']} for layers {wide}")
+    if launches["k1"] <= 0:
+        failures.append("K1 never launched")
+
+    g, p = import_model(work / "cp_resnet50.prototxt", work / "cp_resnet50.caffemodel")
+    widths = {l.name: int(l.attr("num_output")) for l in g.by_type(LT.CONV)}
+    branches = {**RESNET50_2X_BRANCH2A, **RESNET50_2X_BRANCH2B}
+    out_band = {n: (t, widths.get(n)) for n, t in branches.items()
+                if not _check_band(n, t, widths.get(n))}
+    exact = sum(widths.get(n) == t for n, t in branches.items())
+    if out_band:
+        failures.append(f"branch widths outside the band (released, got): {out_band}")
+    gates = {g.consumers(l.tops[0])[0].name: int(l.attr("num_output"))
+             for l in g.by_type(LT.SELECT) if not l.attr("passthrough", False)}
+    gates_out = {n: (t, gates.get(n)) for n, t in RESNET50_2X_FILTERS.items()
+                 if not _check_band(n, t, gates.get(n))}
+    gates_exact = sum(gates.get(n) == t for n, t in RESNET50_2X_FILTERS.items())
+    if len(gates) != 16 or gates_out:
+        failures.append(f"{len(gates)} Select gates; outside the band: {gates_out}")
+
+    x = SyntheticInputs(1, g.inputs[0].shape[0], tuple(g.inputs[0].shape[1:])).batch(0)
+    outs, _ = run_graph(g, params_to_torch(p, device), {"data": x.to(device)})
+    prob = outs["prob"]
+    if not (torch.isfinite(prob).all() and
+            torch.allclose(prob.sum(-1), torch.ones(prob.shape[0], device=device),
+                           atol=1e-4)):
+        failures.append("exported model does not give probabilities")
+    orig = total_flops(build_resnet50(), include_fc=False)
+    new = total_flops(g, include_fc=False)
+    print(f"[resnet50] branch widths in the released band {len(branches) - len(out_band)}"
+          f"/{len(branches)} ({exact} exact); Select gates {len(gates)}, in band "
+          f"{len(RESNET50_2X_FILTERS) - len(gates_out)}/16 ({gates_exact} exact)")
+    print("[resnet50] wall " + " ".join(f"{k} {v:.2f}s" for k, v in res.wall.items())
+          + f"; total {wall:.2f}s; replay {sum(r.replay_seconds for r in res.reports):.2f}s"
+          f" solve {sum(r.solve_seconds for r in res.reports):.2f}s over the layers; "
+          f"conv mults {orig:,} -> {new:,} ({orig / new:.2f}x); kernel launches "
+          f"K1 {launches['k1']} K2 {launches['k2']}; peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    if failures:
+        raise AssertionError("ResNet-50 2x: " + "; ".join(failures))
+    print("[resnet50] exported model reloads, probabilities sum to 1", flush=True)
     return launches, wall
 
 
@@ -263,22 +463,35 @@ def main() -> int:
 
     t = time.perf_counter()
     lasso_cd.build()
-    print(f"[build] lasso_cd.cu -> sm_90a in {time.perf_counter() - t:.2f}s",
+    print(f"[build] lasso_cd.cu (K1, K2) -> sm_90a in {time.perf_counter() - t:.2f}s",
           flush=True)
+    for line in lasso_cd.ptxas_report().splitlines():
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
+            print(f"[build] {line.strip()}")
 
     stats = phase_kernel_vs_plain(device)
+    stream = phase_stream_vs_plain(device)
     phase_tiny_vgg(device)
-    launches, wall = phase_main_path(device)
+    phase_tiny_resnet(device)
+    vgg, wall = phase_main_path(device)
+    r50, r50_wall = phase_resnet50(device)
     if args.profile:
-        phase_profile(wall)
+        phase_profile("vgg16", _prune_vgg16, wall)
+        phase_profile("resnet50", _prune_resnet50, r50_wall)
 
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "lasso_cd_grid", "route": "cuda",
-        "source": "channel_pruning_tpu_torch/csrc/lasso_cd.cu",
-        "replaces": "channel_pruning_tpu/kernels/lasso_cd.py:85",
-        "launches": launches, "max_abs_err": stats["max_abs_err"],
-        "ms": stats["ms"], "plain_ms": stats["plain_ms"]}]}))
+    source = "channel_pruning_tpu_torch/csrc/lasso_cd.cu"
+    print(json.dumps({"kernels": [
+        {"name": "lasso_cd_grid", "route": "cuda", "source": source,
+         "replaces": "channel_pruning_tpu/kernels/lasso_cd.py:85",
+         "launches": vgg["k1"] + r50["k1"],
+         "launches_by_path": {"vgg16_5x": vgg["k1"], "resnet50_2x": r50["k1"]},
+         **stats},
+        {"name": "lasso_cd_grid_stream", "route": "cuda", "source": source,
+         "replaces": "channel_pruning_tpu/kernels/lasso_cd.py:209",
+         "launches": vgg["k2"] + r50["k2"],
+         "launches_by_path": {"vgg16_5x": vgg["k2"], "resnet50_2x": r50["k2"]},
+         **stream}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

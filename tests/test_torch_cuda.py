@@ -61,6 +61,51 @@ def test_cd_kernel_rejects_bad_inputs(card):
         lasso_cd.cd_solve_grid(G, b.cpu(), a)
     with pytest.raises(ValueError):
         lasso_cd.cd_solve_grid(torch.eye(16, device=card)[::2, ::2], b, a)
-    with pytest.raises(NotImplementedError):
-        big = torch.eye(lasso_cd.MAX_C + 1, device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.eye(lasso_cd.MAX_C_STREAM + 1, device=card)
         lasso.search_alpha(lasso.LassoGram(big, big[0], 10), 4, 0.1)
+
+
+def _gate_problem(seed, c, device):
+    """A res5-gate-shaped Gram: 1x1 post-ReLU patches against He-init
+    weights, as chip_smoke.py builds it."""
+    rng = np.random.default_rng(seed)
+    X = np.maximum(rng.normal(size=(250, c, 1, 1)), 0).astype(np.float32)
+    W2 = (rng.normal(size=(512, c, 1, 1)) * np.sqrt(2.0 / c)).astype(np.float32)
+    Z = lasso.build_channel_response(torch.from_numpy(X).to(device),
+                                     torch.from_numpy(W2).to(device))
+    y = Z.sum(dim=1) + 0.05 * torch.from_numpy(
+        rng.normal(size=Z.shape[0]).astype(np.float32)).to(device)
+    gram = lasso.lasso_gram(Z, y)
+    a_max = float(gram.b.abs().max()) / gram.n_samples
+    alphas = torch.as_tensor(np.geomspace(1e-3 * a_max, a_max, 32)
+                             * gram.n_samples, dtype=torch.float32).to(device)
+    return gram, alphas
+
+
+@pytest.mark.cuda
+def test_stream_kernel_matches_plain_version_at_c2048(card):
+    """K2 at a res5 gate's width, dispatched by cd_solve_grid, against the
+    plain version over 3 sweeps (a full 200-sweep plain grid takes about a
+    minute on the card): identical supports, bit-identical betas."""
+    gram, alphas = _gate_problem(0, 2048, card)
+    before = (lasso_cd.LAUNCHES, lasso_cd.LAUNCHES_STREAM)
+    got = lasso_cd.cd_solve_grid(gram.G, gram.b, alphas, n_sweeps=3)
+    torch.cuda.synchronize()
+    assert (lasso_cd.LAUNCHES, lasso_cd.LAUNCHES_STREAM) == \
+        (before[0], before[1] + 1)
+    ref = lasso_cd.cd_solve_grid_plain(gram.G, gram.b, alphas, n_sweeps=3)
+    np.testing.assert_array_equal(lasso.support_mask(got).cpu().numpy(),
+                                  lasso.support_mask(ref).cpu().numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_stream_kernel_equals_k1(card):
+    """K2 forced at c = 512, where the dispatch takes K1: the same betas bit
+    for bit over the full 200 sweeps."""
+    gram, alphas = _gate_problem(1, 512, card)
+    k1 = lasso_cd.cd_solve_grid(gram.G, gram.b, alphas)
+    k2 = lasso_cd.cd_solve_grid_stream(gram.G, gram.b, alphas)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(k2.cpu().numpy(), k1.cpu().numpy())

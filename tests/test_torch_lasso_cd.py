@@ -1,5 +1,6 @@
 """The port's LASSO CD grid solver (channel_pruning_tpu_torch/kernels/lasso_cd)
-against the JAX package's XLA solver and its Pallas kernel in interpret mode.
+against the JAX package's XLA solver and its two Pallas kernels (K1 and the
+HBM-streaming K2) in interpret mode.
 
 Protocol of test_solvers.py::test_pallas_cd_kernel_interpret_parity:
 allclose at rtol 1e-4 / atol 1e-5 (f32 sums taken in another order) with
@@ -46,11 +47,16 @@ def test_plain_grid_matches_xla_solver(seed, n, c, k):
         np.asarray(jax_lasso.support_sizes(ref)))
 
 
-@pytest.mark.parametrize("seed,n,c,k", [(0, 400, 24, 6), (3, 500, 64, 16)])
-def test_plain_grid_matches_pallas_interpret(seed, n, c, k):
+@pytest.mark.parametrize("kernel,seed,n,c,k", [
+    ("cd_solve_grid_pallas", 0, 400, 24, 6),
+    ("cd_solve_grid_pallas", 3, 500, 64, 16),
+    # K2, the HBM-streaming kernel: the plain version serves it too
+    # (protocol of test_solvers.py::test_pallas_hbm_cd_kernel_interpret_parity)
+    ("cd_solve_grid_pallas_hbm", 6, 300, 40, 10)])
+def test_plain_grid_matches_pallas_interpret(kernel, seed, n, c, k):
     G, b, N = _sparse_gram(seed, n, c, k)
     alphas = (np.geomspace(1e-3, 0.5, 8) * N).astype(np.float32)
-    ref = np.asarray(jax_lasso_cd.cd_solve_grid_pallas(
+    ref = np.asarray(getattr(jax_lasso_cd, kernel)(
         G, b, alphas, n_sweeps=300, interpret=True))
     got = _port_grid(G, b, alphas, 300)
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
@@ -83,3 +89,15 @@ def test_per_alpha_stopping_rule():
         alone = _port_grid(G, b, alphas[i:i + 1], 200)
         np.testing.assert_array_equal(alone[0], grid[i])
 
+
+
+def test_stream_wrapper_takes_plain_version_on_cpu():
+    """K2's wrapper on a CPU tensor is the plain version, like K1's, and
+    counts no launch."""
+    G, b, N = _sparse_gram(7, 300, 40, 10)
+    alphas = (np.geomspace(1e-3, 0.5, 6) * N).astype(np.float32)
+    before = (lasso_cd.LAUNCHES, lasso_cd.LAUNCHES_STREAM)
+    got = lasso_cd.cd_solve_grid_stream(torch.from_numpy(G), torch.from_numpy(b),
+                                        torch.from_numpy(alphas)).numpy()
+    np.testing.assert_array_equal(got, _port_grid(G, b, alphas, 200))
+    assert (lasso_cd.LAUNCHES, lasso_cd.LAUNCHES_STREAM) == before

@@ -197,9 +197,11 @@ def test_unported_options_raise(setup):
                            channel_targets=TARGETS, device="cpu")
 
 
-def test_cli_prune_runs_without_jax(tmp_path):
+def _cli_prune_without_jax(tmp_path, model: str, image_size: int,
+                           speed: str) -> None:
     """`cli prune` end to end in a subprocess where `import jax` fails;
-    the exported model reloads through the shared codec."""
+    the exported model reloads through the shared codec and gives
+    probabilities."""
     prog = (
         "import sys\n"
         "def jax_mods():\n"
@@ -208,8 +210,8 @@ def test_cli_prune_runs_without_jax(tmp_path):
         "before = jax_mods()\n"
         "sys.modules['jax'] = None\n"
         "from channel_pruning_tpu_torch import cli\n"
-        f"cli.main(['prune', '--model', 'tiny_vgg', '--batch', '4',"
-        f" '--cal-batches', '4', '--cal-batch', '4', '--speed', '2.0',"
+        f"cli.main(['prune', '--model', {model!r}, '--batch', '4',"
+        f" '--cal-batches', '4', '--cal-batch', '4', '--speed', {speed!r},"
         f" '--device', 'cpu', '--work-dir', {str(tmp_path)!r}])\n"
         "assert jax_mods() <= before, jax_mods() - before\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -217,14 +219,27 @@ def test_cli_prune_runs_without_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "conv mults" in out.stdout
-    g, params = cio.import_model(tmp_path / "cp_tiny_vgg.prototxt",
-                                 tmp_path / "cp_tiny_vgg.caffemodel")
-    sel = np.load(tmp_path / "cp_tiny_vgg_selections.npz")
+    g, params = cio.import_model(tmp_path / f"cp_{model}.prototxt",
+                                 tmp_path / f"cp_{model}.caffemodel")
+    sel = np.load(tmp_path / f"cp_{model}_selections.npz")
     assert sel.files
     x = torch.from_numpy(np.random.default_rng(0).normal(
-        size=(4, 3, 16, 16)).astype(np.float32))
+        size=(4, 3, image_size, image_size)).astype(np.float32))
     outs, _ = run_graph(g, params_to_torch(params, "cpu"), {"data": x})
     np.testing.assert_allclose(outs["prob"].sum(-1).numpy(), 1.0, rtol=1e-5)
+
+
+def test_cli_prune_runs_without_jax(tmp_path):
+    _cli_prune_without_jax(tmp_path, "tiny_vgg", 16, "2.0")
+
+
+def test_cli_prune_resnet_runs_without_jax(tmp_path):
+    """The residual path (DAG frontier, Select gates, residual
+    compensation) in the same jax-free subprocess. At 1.2x every gate keeps
+    more than two channels: the shared Caffe codec reads a Filter blob of
+    only 0s and 1s back as a mask, so the index lists (0,), (1,) and (0, 1)
+    do not survive an export (ROADMAP Queue 3)."""
+    _cli_prune_without_jax(tmp_path, "tiny_resnet", 32, "1.2")
 
 
 def test_port_never_imports_jax():
