@@ -10,10 +10,10 @@ layer with LASSO selection + least-squares reconstruction, and exports the
 pruned prototxt + caffemodel and the selections. `--device` defaults to
 `cuda` and never falls back to the CPU.
 
-Two defaults differ from the JAX CLI: the alpha search is host-stepped (the
-JAX CLI defaults to the fused one-program search; the JAX suite pins the
-two as selection-identical), and replays run in f32 (the JAX CLI's VGG bf16
-replay preset is not carried over).
+The defaults are the JAX CLI's: the solve is the pipelined pass with the
+fused alpha search (`--set solve.fused_search=False` runs the sequential
+host-stepped solve). One preset is not carried over: the JAX CLI replays
+VGG in bf16, and the port replays in f32.
 """
 from __future__ import annotations
 
@@ -49,15 +49,9 @@ def _build_config(args):
     from channel_pruning_tpu_torch.utils.config import default_config
 
     cfg = default_config()
-    keys = set()
     for kv in args.set or []:
         key, _, val = kv.partition("=")
-        keys.add(key)
         cfg = cfg.replace_nested(key, val)
-    if "solve.fused_search" not in keys:
-        print("[prune] host-stepped alpha search (solve.fused_search=False): "
-              "the fused one-program search is not ported")
-        cfg = cfg.replace_nested("solve.fused_search", False)
     return cfg
 
 

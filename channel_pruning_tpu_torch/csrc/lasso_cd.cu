@@ -13,7 +13,9 @@
 //   q    += G[j, :] * (beta' - beta_j)           (G symmetric: row == column)
 // Coordinates with a zero diagonal stay at 0 (padding is inert). Each alpha
 // stops on its own, when max|delta| <= tol * max(max|beta|, 1e-12) after a
-// sweep, or after n_sweeps sweeps.
+// sweep, or after n_sweeps sweeps. An alpha of +inf thresholds every
+// coordinate to 0, so it stops after one sweep of c/32 window steps with
+// no move: the fused search's rounds after it is done cost that much.
 //
 // Arithmetic. Every float operation uses the round-to-nearest intrinsics in
 // the plain PyTorch version's order (kernels/lasso_cd.cd_solve_grid_plain),
@@ -23,10 +25,11 @@
 // which the step before may have changed. The card's arithmetic and
 // bandwidth are nearly idle (a 32-alpha grid at c = 512 needs ~0.5 GFLOP and
 // ~1 MB): a grid costs the serial steps of its slowest alpha (the smallest,
-// whose solution is densest) times the latency of one. The v1 kernels (kept
-// below) run one block of 256 threads per alpha with thread 0 computing
-// every coordinate, so every step pays a block barrier and a shared-memory
-// round trip, although most steps have delta = 0 and change nothing.
+// whose solution is densest) times the latency of one. The first kernels
+// of this port ran one block of 256 threads per alpha with thread 0
+// computing every coordinate, so every step paid a block barrier and a
+// shared-memory round trip, although most steps have delta = 0 and change
+// nothing.
 //
 // Design: the coordinate chain of one alpha runs in one warp, with no block
 // barrier in the coordinate loop. Column k belongs to lane k mod 32. The
@@ -342,211 +345,6 @@ cudaError_t launch_grid(const float* G, const float* b, const float* alphas_n,
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// The v1 kernels, the yardstick of the ones above: one block of 256 threads
-// per alpha, thread 0 computing every coordinate.
-//
-// K1 v1: beta, q, b and diag(G) in shared memory (16·c bytes); thread t owns
-// columns t, t+256, ...; per coordinate thread 0 computes beta_j and delta, a
-// barrier publishes delta, and if delta != 0 every thread updates its slice
-// of q and a second barrier orders that update before the next coordinate.
-// delta is double-buffered by the parity of j, so the second barrier can be
-// skipped when delta == 0.
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;
-
-__global__ void __launch_bounds__(kThreads)
-lasso_cd_grid_v1_kernel(const float* __restrict__ G,
-                        const float* __restrict__ b,
-                        const float* __restrict__ alphas_n,
-                        float* __restrict__ out, int c, int n_sweeps,
-                        float tol) {
-  extern __shared__ float smem[];
-  float* s_beta = smem;
-  float* s_q = smem + c;
-  float* s_b = smem + 2 * c;
-  float* s_diag = smem + 3 * c;
-  __shared__ float s_delta[2];
-  __shared__ float s_warp_max[kThreads / 32];
-  __shared__ int s_continue;
-
-  const int tid = threadIdx.x;
-  const float alpha_n = alphas_n[blockIdx.x];
-  for (int k = tid; k < c; k += kThreads) {
-    s_beta[k] = 0.0f;
-    s_q[k] = 0.0f;
-    s_b[k] = b[k];
-    s_diag[k] = G[(size_t)k * c + k];
-  }
-  __syncthreads();
-
-  float max_delta = 0.0f;  // meaningful in thread 0 only
-  int it = 0;
-  do {
-    max_delta = 0.0f;
-    for (int j = 0; j < c; ++j) {
-      if (tid == 0) {
-        const float dj = s_diag[j];
-        const float bj_old = s_beta[j];
-        float bj = 0.0f;
-        if (dj > 0.0f) {
-          const float cj = __fadd_rn(__fsub_rn(s_b[j], s_q[j]),
-                                     __fmul_rn(dj, bj_old));
-          bj = soft_threshold(cj, alpha_n, dj);
-        }
-        const float delta = __fsub_rn(bj, bj_old);
-        s_beta[j] = bj;
-        s_delta[j & 1] = delta;
-        max_delta = fmaxf(max_delta, fabsf(delta));
-      }
-      __syncthreads();
-      const float delta = s_delta[j & 1];
-      if (delta != 0.0f) {
-        const float* row = G + (size_t)j * c;
-        for (int k = tid; k < c; k += kThreads) {
-          s_q[k] = __fadd_rn(s_q[k], __fmul_rn(row[k], delta));
-        }
-        __syncthreads();
-      }
-    }
-    ++it;
-    // block-wide max|beta| decides whether another sweep runs
-    float m = 0.0f;
-    for (int k = tid; k < c; k += kThreads) m = fmaxf(m, fabsf(s_beta[k]));
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if ((tid & 31) == 0) s_warp_max[tid >> 5] = m;
-    __syncthreads();
-    if (tid == 0) {
-      float scale = 0.0f;
-      for (int w = 0; w < kThreads / 32; ++w) scale = fmaxf(scale, s_warp_max[w]);
-      scale = fmaxf(scale, 1e-12f);
-      s_continue = (it < n_sweeps) && (max_delta > __fmul_rn(tol, scale));
-    }
-    __syncthreads();
-  } while (s_continue);
-
-  float* dst = out + (size_t)blockIdx.x * c;
-  for (int k = tid; k < c; k += kThreads) dst[k] = s_beta[k];
-}
-
-// K2 v1: the same contract for large c, with G's rows streamed into shared
-// memory ahead of use. One block per alpha. beta, q, b and diag(G) live in
-// dynamic shared memory (16·c bytes) beside two row buffers (8·c bytes):
-// 24·c bytes, 48 KB at c = 2048 and 192 KB at c = 8192, under the 227 KB
-// a block may have. Row j is copied into buffer (step & 1) with cp.async at
-// the start of coordinate j-1, so the copy overlaps thread 0's update, the
-// barrier and the q update of the coordinate before it. Thread t copies and
-// later reads only its own columns t, t+256, ... (the same columns of q it
-// owns), so its cp.async.wait_group alone orders the copy before its reads;
-// and every coordinate has a barrier between a buffer's last read and the
-// copy that next overwrites it.
-//
-// Arithmetic: K1 v1's, operation for operation.
-
-__device__ __forceinline__ void cp_async_f32(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__global__ void __launch_bounds__(kThreads)
-lasso_cd_stream_v1_kernel(const float* __restrict__ G,
-                       const float* __restrict__ b,
-                       const float* __restrict__ alphas_n,
-                       float* __restrict__ out, int c, int n_sweeps,
-                       float tol) {
-  extern __shared__ float smem[];
-  float* s_beta = smem;
-  float* s_q = smem + c;
-  float* s_b = smem + 2 * c;
-  float* s_diag = smem + 3 * c;
-  float* s_row = smem + 4 * c;  // two row buffers, c floats each
-  __shared__ float s_delta[2];
-  __shared__ float s_warp_max[kThreads / 32];
-  __shared__ int s_continue;
-
-  const int tid = threadIdx.x;
-  const float alpha_n = alphas_n[blockIdx.x];
-  for (int k = tid; k < c; k += kThreads) {
-    s_beta[k] = 0.0f;
-    s_q[k] = 0.0f;
-    s_b[k] = b[k];
-    s_diag[k] = G[(size_t)k * c + k];
-    cp_async_f32(s_row + k, G + k);  // row 0 into buffer 0
-  }
-  cp_async_commit();
-  __syncthreads();
-
-  int slot = 0;            // buffer holding the current coordinate's row
-  float max_delta = 0.0f;  // meaningful in thread 0 only
-  int it = 0;
-  do {
-    max_delta = 0.0f;
-    for (int j = 0; j < c; ++j) {
-      // row j has landed (this thread's columns); start the next row, the
-      // first row of the next sweep after the last one
-      cp_async_wait_all();
-      const float* next = G + (size_t)(j + 1 < c ? j + 1 : 0) * c;
-      float* nbuf = s_row + (slot ^ 1) * c;
-      for (int k = tid; k < c; k += kThreads) cp_async_f32(nbuf + k, next + k);
-      cp_async_commit();
-      if (tid == 0) {
-        const float dj = s_diag[j];
-        const float bj_old = s_beta[j];
-        float bj = 0.0f;
-        if (dj > 0.0f) {
-          const float cj = __fadd_rn(__fsub_rn(s_b[j], s_q[j]),
-                                     __fmul_rn(dj, bj_old));
-          bj = soft_threshold(cj, alpha_n, dj);
-        }
-        const float delta = __fsub_rn(bj, bj_old);
-        s_beta[j] = bj;
-        s_delta[j & 1] = delta;
-        max_delta = fmaxf(max_delta, fabsf(delta));
-      }
-      __syncthreads();
-      const float delta = s_delta[j & 1];
-      if (delta != 0.0f) {
-        const float* row = s_row + slot * c;
-        for (int k = tid; k < c; k += kThreads) {
-          s_q[k] = __fadd_rn(s_q[k], __fmul_rn(row[k], delta));
-        }
-        __syncthreads();
-      }
-      slot ^= 1;
-    }
-    ++it;
-    float m = 0.0f;
-    for (int k = tid; k < c; k += kThreads) m = fmaxf(m, fabsf(s_beta[k]));
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if ((tid & 31) == 0) s_warp_max[tid >> 5] = m;
-    __syncthreads();
-    if (tid == 0) {
-      float scale = 0.0f;
-      for (int w = 0; w < kThreads / 32; ++w) scale = fmaxf(scale, s_warp_max[w]);
-      scale = fmaxf(scale, 1e-12f);
-      s_continue = (it < n_sweeps) && (max_delta > __fmul_rn(tol, scale));
-    }
-    __syncthreads();
-  } while (s_continue);
-  cp_async_wait_all();  // drain the prefetch for the sweep that did not run
-
-  float* dst = out + (size_t)blockIdx.x * c;
-  for (int k = tid; k < c; k += kThreads) dst[k] = s_beta[k];
-}
-
 }  // namespace
 
 extern "C" {
@@ -595,34 +393,6 @@ int cp_lasso_cd_grid_stream(const float* G, const float* b,
     err = launch_grid<8, 32>(G, b, alphas_n, out, stats, c, n_alpha,
                              n_sweeps, tol, st);
   return static_cast<int>(err);
-}
-
-// The v1 entry points: the same arguments as the new ones, without stats.
-int cp_lasso_cd_grid_v1(const float* G, const float* b, const float* alphas_n,
-                     float* out, int c, int n_alpha, int n_sweeps, float tol,
-                     void* stream) {
-  const size_t smem = (size_t)4 * c * sizeof(float);
-  lasso_cd_grid_v1_kernel<<<n_alpha, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      G, b, alphas_n, out, c, n_sweeps, tol);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K2 v1 takes 24·c bytes of dynamic shared memory: its limit is raised first.
-int cp_lasso_cd_grid_stream_v1(const float* G, const float* b,
-                            const float* alphas_n, float* out, int c,
-                            int n_alpha, int n_sweeps, float tol,
-                            void* stream) {
-  if (c < 1 || c > kMaxCStream) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)6 * c * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      lasso_cd_stream_v1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  lasso_cd_stream_v1_kernel<<<n_alpha, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      G, b, alphas_n, out, c, n_sweeps, tol);
-  return static_cast<int>(cudaGetLastError());
 }
 
 const char* cp_cuda_error_string(int code) {

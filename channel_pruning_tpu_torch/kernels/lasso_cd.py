@@ -16,10 +16,6 @@ both, and both match it bit for bit. The source is built with nvcc for sm_90a on
 CUDA tensors and takes the plain version only for tensors on the CPU; a
 failed build or launch raises. `LAUNCHES` counts K1's launches and
 `LAUNCHES_STREAM` K2's.
-
-The source also keeps the previous kernels (`cd_solve_grid_v1`: one block
-of 256 threads per alpha, thread 0 computing every coordinate) as the
-yardstick the new ones are timed against; nothing dispatches to them.
 """
 from __future__ import annotations
 
@@ -132,13 +128,9 @@ def build() -> ctypes.CDLL:
         os.replace(tmp, so)       # atomic: a concurrent build never sees half
     lib = ctypes.CDLL(str(so))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name, stats in (("cp_lasso_cd_grid", True),
-                        ("cp_lasso_cd_grid_stream", True),
-                        ("cp_lasso_cd_grid_v1", False),
-                        ("cp_lasso_cd_grid_stream_v1", False)):
+    for name in ("cp_lasso_cd_grid", "cp_lasso_cd_grid_stream"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr] * (5 if stats else 4) + \
-            [i32, i32, i32, ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 5 + [i32, i32, i32, ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
     lib.cp_cuda_error_string.argtypes = [ctypes.c_int]
     lib.cp_cuda_error_string.restype = ctypes.c_char_p
@@ -180,14 +172,14 @@ def _check_stats(stats: torch.Tensor | None, G: torch.Tensor, A: int) -> None:
 
 def _launch(entry: str, G: torch.Tensor, b: torch.Tensor,
             alphas_n: torch.Tensor, n_sweeps: int, tol: float,
-            stats: torch.Tensor | None = None, v1: bool = False) -> torch.Tensor:
+            stats: torch.Tensor | None = None) -> torch.Tensor:
     """Launch one of the C entry points on the current stream; raises if the
-    launch is refused. The v1 entry points take no stats pointer. The new
-    kernels copy rows with TMA, in 16-byte units from 16-byte aligned
-    addresses: a width that is not a multiple of 4 is padded with inert
-    zero rows and columns (a zero diagonal never moves)."""
+    launch is refused. The kernels copy rows with TMA, in 16-byte units
+    from 16-byte aligned addresses: a width that is not a multiple of 4 is
+    padded with inert zero rows and columns (a zero diagonal never moves).
+    Nothing here reads the card on the host."""
     c, A = G.shape[0], alphas_n.shape[0]
-    if not v1 and (c % 4 or G.data_ptr() % 16 or b.data_ptr() % 16):
+    if c % 4 or G.data_ptr() % 16 or b.data_ptr() % 16:
         cp = c + (-c % 4)
         Gp = torch.zeros((cp, cp), dtype=G.dtype, device=G.device)
         bp = torch.zeros(cp, dtype=b.dtype, device=b.device)
@@ -196,9 +188,8 @@ def _launch(entry: str, G: torch.Tensor, b: torch.Tensor,
                        stats)[:, :c].contiguous()
     out = torch.empty((A, c), dtype=torch.float32, device=G.device)
     fn = getattr(build(), entry)
-    ptrs = [G.data_ptr(), b.data_ptr(), alphas_n.data_ptr(), out.data_ptr()]
-    if not v1:
-        ptrs.append(stats.data_ptr() if stats is not None else None)
+    ptrs = [G.data_ptr(), b.data_ptr(), alphas_n.data_ptr(), out.data_ptr(),
+            stats.data_ptr() if stats is not None else None]
     with torch.cuda.device(G.device):
         stream = torch.cuda.current_stream(G.device).cuda_stream
         rc = fn(*ptrs, c, A, int(n_sweeps), float(tol), stream)
@@ -261,16 +252,3 @@ def cd_solve_grid_stream(G: torch.Tensor, b: torch.Tensor,
                   stats)
     LAUNCHES_STREAM += 1
     return out
-
-
-def cd_solve_grid_v1(G: torch.Tensor, b: torch.Tensor, alphas_n: torch.Tensor,
-                     n_sweeps: int = 200, tol: float = 1e-8,
-                     stream: bool = False) -> torch.Tensor:
-    """The previous kernels on the card (K1 v1, or K2 v1 with `stream`), the
-    yardstick the new ones are timed and checked against. Off the main path:
-    no counter, no CPU version."""
-    c = _checked(G, b, alphas_n, n_sweeps, None, MAX_C_STREAM if stream else MAX_C)
-    if alphas_n.shape[0] == 0:
-        return torch.empty((0, c), dtype=torch.float32, device=G.device)
-    entry = "cp_lasso_cd_grid_stream_v1" if stream else "cp_lasso_cd_grid_v1"
-    return _launch(entry, G, b, alphas_n, n_sweeps, tol, v1=True)

@@ -7,11 +7,11 @@
    (kernels/lasso_cd: the CUDA kernel on the card; its plain version
    `cd_solve_grid_plain`, the port of the reference's `cd_solve` /
    `cd_solve_grid`, on the CPU);
-4. the host-stepped grid refinement of `search_alpha`, until some alpha's
-   support lands in [rank, rank + rank_tol·rank].
-
-The JAX CLI defaults to the fused one-program search (`_fused_search`);
-this port runs the host-stepped search, which the JAX suite pins as exact.
+4. the grid refinement, until some alpha's support lands in
+   [rank, rank + rank_tol·rank]: host-stepped in `search_alpha` (float64
+   endpoints, a host read per round), or on the device in `_fused_search`
+   (the default, as in the JAX CLI: float32 endpoints, no host read until
+   the result is returned).
 """
 from __future__ import annotations
 
@@ -160,15 +160,231 @@ def search_alpha(gram: LassoGram, rank: int, rank_tol: float,
     return masks[best], float(alphas[best]), int(supports[best])
 
 
+class FusedSearch(NamedTuple):
+    """`_fused_search`'s result, all device tensors."""
+    mask: torch.Tensor      # (c,) bool
+    alpha: torch.Tensor     # () float32
+    support: torch.Tensor   # () int64, mask.sum()
+    grids: torch.Tensor     # () int64, the grids the search solved
+
+
+def _pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[i] for a 0-d index tensor on x's device. Indexing with a tensor
+    scalar reads it on the host; index_select does not."""
+    return x.index_select(0, i.reshape(1)).squeeze(0)
+
+
+def _fused_search(G: torch.Tensor, b: torch.Tensor, n_samples: int,
+                  rank: int, rank_tol: float, alpha0: float, grid_size: int,
+                  max_rounds: int, n_sweeps: int, prefer: str) -> FusedSearch:
+    """The whole alpha search on the device, with no host read: the port of
+    the JAX package's one-program search (ops/lasso._fused_search), which
+    mirrors `search_alpha`'s probe sequence (geometric bracket, linear
+    refinement, band pick, exact-count trim or top-up) with float32 grid
+    endpoints.
+
+    The state is a dict of tensors updated as `where(done, old, new)`, over
+    exactly `max_rounds` host iterations: a finished state is frozen, so the
+    sequence equals `lax.while_loop`'s. A round after `done` still launches
+    the CD kernel, with alphas of +inf: every soft-threshold is 0, every
+    beta stays exactly 0, each alpha stops after one sweep, and the update
+    throws that grid away. `grids` counts the rounds that were not."""
+    c = G.shape[0]
+    dt = G.dtype
+    dev = G.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    i64 = dict(dtype=torch.int64, device=dev)
+    top = prefer == "top"
+    lbound = int(rank)
+    # float32 as the JAX package computes it: rank and rank_tol rounded to
+    # f32, one f32 product and one f32 sum
+    rb = np.float32(rank_tol) if rank_tol >= 1 else \
+        np.float32(rank_tol) * np.float32(lbound)
+    rbound = float(np.float32(lbound) + rb)
+    rbound_i = int(rbound)
+    BIG = 10 ** 9
+    inf = float("inf")
+    N = float(np.float32(n_samples))
+    diag = torch.diagonal(G)
+    # separate f32 operations, as in JAX: no fused multiply-add, and a true
+    # division (a CUDA division by a Python scalar multiplies by its
+    # reciprocal)
+    t = torch.arange(1, grid_size + 1, **f32) / \
+        torch.full((), grid_size + 1, **f32)
+    zero_f = torch.zeros((), **f32)
+    false = torch.zeros((), dtype=torch.bool, device=dev)
+    s = dict(
+        alphas=alpha0 * (2.0 ** torch.arange(-2, grid_size - 2, **f32)),
+        lo=zero_f, hi=zero_f, hi_found=false,
+        cand_support=torch.full((), -1, **i64),
+        cand_mask=torch.zeros(c, dtype=torch.bool, device=dev),
+        cand_alpha=zero_f, cand_found=false,
+        over_support=torch.full((), BIG, **i64),
+        over_absb=torch.zeros(c, dtype=dt, device=dev),
+        over_alpha=zero_f, over_found=false,
+        last_betas=torch.zeros((grid_size, c), dtype=dt, device=dev),
+        last_supports=torch.zeros(grid_size, **i64),
+        refines=torch.zeros((), **i64), done=false)
+    grids = torch.zeros((), **i64)
+
+    for _ in range(max_rounds):
+        keep_old = s["done"]
+        grids = grids + (~keep_old).long()
+        alphas = s["alphas"]
+        a_n = (torch.where(keep_old, inf, alphas) * N).to(dt).contiguous()
+        betas = lasso_cd.cd_solve_grid(G, b, a_n, n_sweeps=n_sweeps)
+        masks = support_mask(betas)      # row-wise: row i is betas[i]'s mask
+        supports = masks.sum(dim=-1)
+        sup_f = supports.float()
+        in_band = (supports >= lbound) & (sup_f <= rbound)
+        any_band = in_band.any()
+
+        # best_over (bottom path): the smallest support >= rank
+        if top:
+            over_better = false
+        else:
+            ge = supports >= lbound
+            sup_ge = torch.where(ge, supports, BIG)
+            gi = torch.argmin(sup_ge)
+            over_better = ge.any() & (_pick(sup_ge, gi) < s["over_support"])
+            over_gi = (_pick(supports, gi), _pick(betas, gi).abs(),
+                       _pick(alphas, gi))
+        new = {}
+        if top:
+            new.update(over_support=s["over_support"],
+                       over_absb=s["over_absb"], over_alpha=s["over_alpha"])
+        else:
+            new.update(
+                over_support=torch.where(over_better, over_gi[0],
+                                         s["over_support"]),
+                over_absb=torch.where(over_better, over_gi[1], s["over_absb"]),
+                over_alpha=torch.where(over_better, over_gi[2],
+                                       s["over_alpha"]))
+        new["over_found"] = over_better | s["over_found"]
+
+        # in-band candidate: the largest (top) / smallest (bottom) support
+        if top:
+            bi = torch.argmax(torch.where(in_band, supports, -1))
+        else:
+            bi = torch.argmin(torch.where(in_band, supports, BIG))
+        sb = _pick(supports, bi)
+        cand_better = any_band & (~s["cand_found"] | (
+            sb > s["cand_support"] if top else sb < s["cand_support"]))
+        cand_support = torch.where(cand_better, sb, s["cand_support"])
+        cand_alpha = torch.where(cand_better, _pick(alphas, bi),
+                                 s["cand_alpha"])
+        cand_found = s["cand_found"] | cand_better
+        new.update(cand_support=cand_support, cand_alpha=cand_alpha,
+                   cand_found=cand_found,
+                   cand_mask=torch.where(cand_better, _pick(masks, bi),
+                                         s["cand_mask"]))
+
+        # band-edge termination and the refinement budget
+        edge = (cand_support >= rbound_i if top
+                else cand_support <= lbound) & cand_found
+        refines = s["refines"] + (any_band & ~edge).long()
+        budget_done = refines > 2
+
+        # refinement grid between the best in-band alpha and the nearest
+        # out-of-band alpha on the preferred side (support ~decreasing in a)
+        if top:
+            over_i = sup_f > rbound
+            a_hi_r = cand_alpha
+            a_lo_r = torch.where(
+                over_i.any(),
+                _pick(alphas, torch.argmin(torch.where(over_i, supports, BIG))),
+                torch.maximum(s["lo"], a_hi_r / 2.0))
+        else:
+            under_i = supports < lbound
+            a_lo_r = cand_alpha
+            a_hi_r = torch.where(
+                under_i.any(),
+                _pick(alphas, torch.argmax(torch.where(under_i, supports, -1))),
+                torch.where(s["hi_found"], s["hi"], a_lo_r * 2.0))
+        degenerate = (a_hi_r - a_lo_r) <= 1e-12 * torch.clamp(a_hi_r, min=1e-30)
+        refine_grid = a_lo_r + (a_hi_r - a_lo_r) * t
+
+        # bracket update (no in-band sample this round)
+        over_b = sup_f > rbound
+        under_b = supports < lbound
+        lo_new = torch.where(
+            over_b.any(),
+            _pick(alphas, torch.argmin(torch.where(over_b, supports, BIG))),
+            s["lo"])
+        hi_new = torch.where(
+            under_b.any(),
+            _pick(alphas, torch.argmax(torch.where(under_b, supports, -1))),
+            torch.where(s["hi_found"], s["hi"], 0.0))
+        hi_found = s["hi_found"] | under_b.any()
+        grow_grid = alphas * (2.0 ** grid_size)
+        lo_brk = torch.where(over_b.any(), lo_new, hi_new / (2.0 ** grid_size))
+        bracket_grid = lo_brk + (hi_new - lo_brk) * t
+        no_band_grid = torch.where(hi_found, bracket_grid, grow_grid)
+
+        new.update(alphas=torch.where(any_band, refine_grid, no_band_grid),
+                   lo=torch.where(any_band, s["lo"], lo_new), hi=hi_new,
+                   hi_found=hi_found, last_betas=betas,
+                   last_supports=supports, refines=refines)
+        done = keep_old | edge | (any_band & (budget_done | degenerate))
+        s = {k: torch.where(keep_old, s[k], v) for k, v in new.items()}
+        s["done"] = done
+
+    # the final selection, the device-side mirror of search_alpha's epilogue;
+    # stable sorts, so ties go to the lower index as in jnp.argsort
+    def first_k(score: torch.Tensor, k) -> torch.Tensor:
+        """Mask of the k largest scores (k an int or a 0-d tensor)."""
+        order = torch.argsort(-score, stable=True)
+        return torch.argsort(order, stable=True) < k
+
+    trim_mask = first_k(s["over_absb"], lbound)
+    dist = (s["last_supports"] - lbound).abs()
+    ni = torch.argmin(dist)
+    near_mask = support_mask(_pick(s["last_betas"], ni))
+    dist2 = torch.minimum(dist.float(),
+                          (s["last_supports"].float() - rbound).abs())
+    ni2 = torch.argmin(dist2)
+    near_mask2 = support_mask(_pick(s["last_betas"], ni2))
+    short = lbound - near_mask.sum()
+    energy = torch.where(near_mask, -inf, diag.float())
+    topped = near_mask | first_k(energy, short)
+    if top:
+        mask = torch.where(s["cand_found"], s["cand_mask"], near_mask2)
+        alpha = torch.where(s["cand_found"], s["cand_alpha"],
+                            _pick(s["alphas"], ni2))
+    else:
+        exact = s["cand_found"] & (s["cand_support"] == lbound)
+        mask = torch.where(exact, s["cand_mask"],
+                           torch.where(s["over_found"], trim_mask, topped))
+        alpha = torch.where(exact, s["cand_alpha"],
+                            torch.where(s["over_found"], s["over_alpha"],
+                                        _pick(s["alphas"], ni)))
+    return FusedSearch(mask=mask, alpha=alpha, support=mask.sum(), grids=grids)
+
+
+def fused_search_alpha(gram: LassoGram, rank: int, rank_tol: float,
+                       alpha0: float = 1e-3, grid_size: int = 16,
+                       max_rounds: int = 8, n_sweeps: int = 200,
+                       prefer: str = "top") -> tuple[np.ndarray, float, int]:
+    """`search_alpha`'s contract through `_fused_search`: the result is
+    read on the host once, at the end."""
+    c = int(gram.G.shape[0])
+    if rank >= c:
+        return np.ones(c, bool), 0.0, c
+    out = _fused_search(gram.G, gram.b, gram.n_samples, rank, float(rank_tol),
+                        float(alpha0), grid_size, max_rounds, n_sweeps, prefer)
+    return out.mask.cpu().numpy(), float(out.alpha), int(out.support)
+
+
 def select_channels(X: torch.Tensor, W2: torch.Tensor, Y: torch.Tensor,
                     rank: int, *, alpha0: float = 1e-3, rank_tol: float = 0.1,
                     subsample: int = 400, seed: int = 0, grid_size: int = 16,
                     max_rounds: int = 8, n_sweeps: int = 200,
-                    prefer: str = "top") -> tuple[np.ndarray, float, int]:
+                    prefer: str = "top", fused: bool = False
+                    ) -> tuple[np.ndarray, float, int]:
     """End-to-end selection for one layer. X: (N, c, kh, kw) patches,
     W2: (n, c, kh, kw), Y: (N, n) targets, all on one device. The row
     subsample is numpy's `default_rng(seed).integers`, so both packages use
-    the same rows."""
+    the same rows. `fused` searches with `fused_search_alpha`."""
     N = X.shape[0]
     n_sub = min(subsample, max(N // 20, 1))
     rows = np.random.default_rng(seed).integers(0, N, size=n_sub)
@@ -177,6 +393,6 @@ def select_channels(X: torch.Tensor, W2: torch.Tensor, Y: torch.Tensor,
     Ys = Y.index_select(0, idx).float()
     Z = build_channel_response(Xs, W2.float())
     gram = lasso_gram(Z, Ys.reshape(-1))
-    return search_alpha(gram, rank, rank_tol, alpha0=alpha0,
-                        grid_size=grid_size, max_rounds=max_rounds,
-                        n_sweeps=n_sweeps, prefer=prefer)
+    search = fused_search_alpha if fused else search_alpha
+    return search(gram, rank, rank_tol, alpha0=alpha0, grid_size=grid_size,
+                  max_rounds=max_rounds, n_sweeps=n_sweeps, prefer=prefer)

@@ -2,7 +2,9 @@
 
 Centred normal equations, a 1e-6·trace jitter so rank-deficient designs
 stay Cholesky-factorisable in f32, and a Cholesky solve. Plain torch
-matmuls: the JAX package left this work to XLA outside any kernel.
+matmuls: the JAX package left this work to XLA outside any kernel. The
+intercept path reads nothing on the host, so the pipelined pass can queue
+it behind the layer before.
 """
 from __future__ import annotations
 
@@ -29,20 +31,27 @@ def _jittered(G: torch.Tensor, ridge: float, jitter: float) -> torch.Tensor:
 
 def factor(X: torch.Tensor, ridge: float = 0.0, jitter: float = 1e-6
            ) -> LinearFactors:
-    """Factor the centred Gram matrix of X (N, d)."""
+    """Factor the centred Gram matrix of X (N, d). `cholesky_ex` keeps its
+    status on the device (`cholesky` checks it on the host, which on the
+    card waits for the queue); a failed factorisation gives NaN factors, as
+    the JAX package's does, and shows as a non-finite rMSE where the caller
+    reads it."""
     x_mean = X.mean(dim=0)
     Xc = X - x_mean
     G = _jittered(_sym(Xc.T @ Xc), ridge, jitter)
-    return LinearFactors(chol=torch.linalg.cholesky(G), x_mean=x_mean,
-                         n=X.shape[0])
+    L, info = torch.linalg.cholesky_ex(G)
+    return LinearFactors(chol=torch.where(info == 0, L, float("nan")),
+                         x_mean=x_mean, n=X.shape[0])
 
 
 def solve(f: LinearFactors, X: torch.Tensor, Y: torch.Tensor
           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(W (n_out, d), b (n_out,)) with Y ≈ X @ W.T + b, from cached factors."""
+    """(W (n_out, d), b (n_out,)) with Y ≈ X @ W.T + b, from cached factors,
+    by two triangular solves (no host read)."""
     y_mean = Y.mean(dim=0)
     C = (X - f.x_mean).T @ (Y - y_mean)            # (d, n_out)
-    W = torch.cholesky_solve(C, f.chol).T
+    Z = torch.linalg.solve_triangular(f.chol, C, upper=False)
+    W = torch.linalg.solve_triangular(f.chol.T, Z, upper=True).T
     b = y_mean - W @ f.x_mean
     return W, b
 

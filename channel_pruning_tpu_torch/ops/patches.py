@@ -47,20 +47,38 @@ def gather_patches_at_points(x: torch.Tensor, ys: torch.Tensor,
 
 def gather_channels_grouped(v: torch.Tensor, ys: torch.Tensor,
                             xs: torch.Tensor) -> torch.Tensor:
-    """v: (G*B, C, H, W), ys/xs: (G, P) -> (G*P*B, C)."""
+    """v: (G*B, C, H, W), ys/xs: (G, P) -> (G*P*B, C): one indexing op for
+    all G chunks (the values and rows of G calls of
+    gather_channels_at_points, concatenated)."""
     G = ys.shape[0]
-    vg = v.reshape((G, -1) + tuple(v.shape[1:]))
-    return torch.cat([gather_channels_at_points(vg[g], ys[g], xs[g])
-                      for g in range(G)], dim=0)
+    vg = v.reshape((G, -1) + tuple(v.shape[1:]))           # (G, B, C, H, W)
+    gi = torch.arange(G, device=v.device)[:, None]
+    # advanced indices on dims 0, 3, 4 around slices: (G, P) lead, (B, C)
+    return vg[gi, :, :, ys, xs].reshape(-1, v.shape[1])
 
 
 def gather_patches_grouped(v: torch.Tensor, ys: torch.Tensor,
                            xs: torch.Tensor, kernel: tuple[int, int],
                            stride: tuple[int, int], pad: tuple[int, int]
                            ) -> torch.Tensor:
-    """v: (G*B, C, H, W), ys/xs: (G, P) -> (G*P*B, C, kh, kw)."""
-    G = ys.shape[0]
-    vg = v.reshape((G, -1) + tuple(v.shape[1:]))
-    return torch.cat([gather_patches_at_points(vg[g], ys[g], xs[g], kernel,
-                                               stride, pad)
-                      for g in range(G)], dim=0)
+    """v: (G*B, C, H, W), ys/xs: (G, P) -> (G*P*B, C, kh, kw): one gather
+    for all G chunks (the values and rows of G calls of
+    gather_patches_at_points, concatenated; a host loop over the chunks
+    cost ~18 small ops each)."""
+    kh, kw = kernel
+    sh, sw = stride
+    ph, pw = pad
+    G, H, W = ys.shape[0], v.shape[2], v.shape[3]
+    dev = v.device
+    vg = v.reshape((G, -1) + tuple(v.shape[1:]))           # (G, B, C, H, W)
+    rows = (ys * sh - ph)[:, :, None] + torch.arange(kh, device=dev)
+    cols = (xs * sw - pw)[:, :, None] + torch.arange(kw, device=dev)
+    rmask = (rows >= 0) & (rows < H)                        # (G, P, kh)
+    cmask = (cols >= 0) & (cols < W)                        # (G, P, kw)
+    rc = rows.clamp(0, H - 1)[:, :, :, None]
+    cc = cols.clamp(0, W - 1)[:, :, None, :]
+    gi = torch.arange(G, device=dev)[:, None, None, None]
+    sub = vg[gi, :, :, rc, cc]                          # (G, P, kh, kw, B, C)
+    mask = (rmask[:, :, :, None] & cmask[:, :, None, :]).to(v.dtype)
+    sub = sub * mask[..., None, None]
+    return sub.permute(0, 1, 4, 5, 2, 3).reshape(-1, v.shape[1], kh, kw)

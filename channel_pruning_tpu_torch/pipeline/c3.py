@@ -8,14 +8,19 @@ sampled from the net with all earlier layers already pruned); `g_out`, the
 output graph, is physically pruned with pure rewrites. Ground-truth targets
 always come from the frozen cache of the original net.
 
-Ported: `preprocess` and the SEQUENTIAL `solve_prune` loop, on chain graphs
-with the rolling frontier and on residual graphs with the DAG frontier,
-Select gates (`input_targets`) and residual compensation. Not yet: the
-pipelined pass, fitfc, and the 3C solver.
+Ported: `preprocess` and `solve_prune`, on chain graphs with the rolling
+frontier and on residual graphs with the DAG frontier, Select gates
+(`input_targets`) and residual compensation; its default is the pipelined
+pass (`_pipelined_conv_pass`, with the fused search), and the sequential
+per-layer loop serves `solve.fused_search=False` and the restart after a
+degenerate layer. Not yet: fitfc and the 3C solver.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import math
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Mapping
@@ -30,6 +35,14 @@ from channel_pruning_tpu_torch.convert import params_to_torch
 from channel_pruning_tpu_torch.pipeline import prune as prune_mod
 from channel_pruning_tpu_torch.sampling import rolling as rolling_mod
 from channel_pruning_tpu_torch.sampling import sampler as sampling
+
+# CP_TPU_PHASE_TIMING=1 (the JAX package's switch) prints fenced per-layer
+# timings of the pipelined pass: attribution only, since the fences
+# serialise the work the pass overlaps
+_PHASE_TIMING = os.environ.get("CP_TPU_PHASE_TIMING", "") == "1"
+# set by chip_smoke.py: each layer's dispatch in the pipelined pass runs
+# under torch.cuda.set_sync_debug_mode("error"), so a host sync there raises
+CHECK_DISPATCH_SYNC = False
 
 
 def preprocess(graph: Graph, params: Mapping[str, Mapping[str, np.ndarray]]
@@ -52,6 +65,7 @@ class LayerReport:
     replay_seconds: float = 0.0
     solve_seconds: float = 0.0
     kind: str = "prune"       # "gate": a Select gate in front of the consumer
+    grids: int | None = None  # CD grids the fused search solved (pipelined)
 
 
 @dataclass
@@ -65,6 +79,8 @@ class SolveResult:
     frontier_fallbacks: list[str] = field(default_factory=list)
     # wall seconds per CLI phase (load, freeze, solve, export)
     wall: dict[str, float] = field(default_factory=dict)
+    # the pipelined pass ran to its end (False: sequential, or restarted)
+    pipelined: bool = False
 
     def summary(self) -> str:
         lines = []
@@ -176,10 +192,12 @@ def _maybe_rolling(g_run: Graph, cache: sampling.FrozenCache, device,
     if rolling_mod.is_chain(g_run):
         if rolling_mod.estimate_peak_bytes(g_run, n_images) > budget:
             return None
-        return rolling_mod.RollingReplay(g_run, cache.inputs, device=device)
+        return rolling_mod.RollingReplay(g_run, cache.inputs, device=device,
+                                         plan=cache.plan)
     if rolling_mod.estimate_cut_bytes(g_run, n_images) > budget:
         return None
-    return rolling_mod.RollingReplayDAG(g_run, cache.inputs, device=device)
+    return rolling_mod.RollingReplayDAG(g_run, cache.inputs, device=device,
+                                        plan=cache.plan)
 
 
 def _residual_context(g_run: Graph, consumer_top: str):
@@ -196,9 +214,6 @@ def check_supported(graph: Graph, cfg: Config) -> None:
     """Raise NotImplementedError for options and topologies the port's
     solve does not run yet."""
     unported = []
-    if cfg.solve.fused_search:
-        unported.append("solve.fused_search=True (the port runs the "
-                        "host-stepped search; pass solve.fused_search=False)")
     if cfg.solve.dtype != "float32":
         unported.append(f"solve.dtype={cfg.solve.dtype} (the port replays in "
                         "f32 until a parity run on the card proves bf16)")
@@ -221,13 +236,215 @@ def _ground_truth(feats_dev: dict[str, torch.Tensor],
     return feats_dev[tensor]
 
 
+def _layer_items(g_run: Graph, p_run, channel_targets, input_targets,
+                 resume_i: int):
+    """(index, consumer, bottom, target, gate_only) of every layer to solve
+    after `resume_i`, in the JAX package's order: a gate target first; the
+    first conv is skipped only as a channel target."""
+    items = []
+    for i, consumer in enumerate(g_run.convs):
+        if i <= resume_i:
+            continue
+        bottom = g_run.layer(consumer).bottoms[0]
+        producer = prune_mod.producer_conv(g_run, bottom, before=consumer)
+        target = None
+        gate_only = False
+        if input_targets is not None and consumer in input_targets:
+            target = input_targets[consumer]
+            gate_only = True
+        elif channel_targets is not None and producer is not None and i > 0:
+            target = channel_targets.get(producer)
+        if target is None or target >= p_run[consumer]["W"].shape[1]:
+            continue
+        items.append((i, consumer, bottom, int(target), gate_only))
+    return items
+
+
+class _PipelineDegenerate(RuntimeError):
+    """The pipelined pass hit a layer the fused solve cannot serve (an empty
+    selection, or a frontier that cannot serve the layer); the caller
+    restarts the solve on the sequential path."""
+
+
+@contextlib.contextmanager
+def _dispatch_guard(device):
+    """With CHECK_DISPATCH_SYNC on the card, any host sync inside raises."""
+    if not (CHECK_DISPATCH_SYNC and device.type == "cuda") or _PHASE_TIMING:
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def _to_host_async(out: prune_mod.FusedLayer, device):
+    """Queue the copies of a layer's results to the host behind its solve,
+    and an event after them: waiting on the event waits for this layer
+    alone, not for the layers queued after it."""
+    if device.type != "cuda":
+        return out, None
+    host = prune_mod.FusedLayer(*(v.to("cpu", non_blocking=True) for v in out))
+    ev = torch.cuda.Event()
+    ev.record()
+    return host, ev
+
+
+def _pipelined_conv_pass(g_run: Graph, p_run, dev_run, g_out, p_out,
+                         selections, reports, cache: sampling.FrozenCache,
+                         cfg: Config, channel_targets, roll, checkpoint,
+                         resume_i: int, verbose: bool, device,
+                         frontier_fallbacks: list[str],
+                         input_targets=None, residual_compensate: bool = True):
+    """The pipelined pass (port of the JAX package's `_pipelined_conv_pass`):
+    each layer's device work (frontier advance, patch gather, target build
+    and `_fused_layer_solve`) is queued with no host sync, behind the layer
+    before; the host's bookkeeping (reading the result, the output-graph
+    rewrite, the checkpoint) trails one layer behind. Chain and DAG
+    frontiers, gate-only consumers and residual compensation (Y built on
+    the device from `features_at(device=True)`) all stay on this path.
+
+    The running weights are updated on the device: `Wfull` is the
+    zero-scattered reconstruction, so the next advance needs no upload.
+    Each layer is solved at its own width (the JAX package pads to one
+    width per kernel size only to compile once). Raises _PipelineDegenerate
+    when a layer needs the sequential path's fallbacks."""
+    items = _layer_items(g_run, p_run, channel_targets, input_targets,
+                         resume_i)
+    if not items:
+        return g_out, p_out
+    # the ground truth of every layer, and the row subsample drawn once (the
+    # plan gives every layer the same row count), go up before the loop
+    targets = {}
+    for _, consumer, _, _, _ in items:
+        top = g_run.layer(consumer).tops[0]
+        e_top, others = (_residual_context(g_run, top) if residual_compensate
+                         else (None, ()))
+        if e_top is not None and e_top in cache.feats:
+            targets[consumer] = (e_top, others)
+        else:
+            targets[consumer] = (top, ())
+    feats_dev: dict[str, torch.Tensor] = {}
+    for t, _ in targets.values():
+        _ground_truth(feats_dev, cache, t, device)
+    N = int(np.asarray(cache.feats[targets[items[0][1]][0]]).shape[0])
+    n_sub = min(cfg.lasso.subsample_rows, max(N // 20, 1))
+    rows = np.random.default_rng(cfg.sample.seed).integers(0, N, size=n_sub)
+    rows_d = torch.as_tensor(rows, device=device)
+    pending: collections.deque = collections.deque()
+
+    def drain_one():
+        nonlocal g_out, p_out
+        i, consumer, (out, ev), n_in, gate_only, t0 = pending.popleft()
+        if ev is not None:
+            ev.synchronize()       # this layer's results are on the host
+        keep = out.mask.numpy().astype(bool)
+        if keep.sum() == 0:
+            raise _PipelineDegenerate(f"{consumer}: empty fused selection "
+                                      "(magnitude fallback needed)")
+        Wfull = out.Wfull.numpy()
+        b = out.b.numpy()
+        res = prune_mod.PruneResult(
+            keep=keep, W=Wfull[:, keep], b=b, alpha=float(out.alpha),
+            rmse_before=float(out.rmse_before),
+            rmse_after=float(out.rmse_after))
+        p_run[consumer] = {"W": Wfull, "b": b}   # == _scatter_inputs(W, keep)
+        g_out, p_out = prune_mod.apply_pruning(g_out, p_out, consumer, res,
+                                               shrink_producer=not gate_only)
+        selections[consumer] = keep
+        dt = time.perf_counter() - t0
+        kind = "gate" if gate_only else "prune"
+        reports.append(LayerReport(
+            conv=consumer, kept=int(keep.sum()), total=int(n_in),
+            alpha=res.alpha, rmse_before=res.rmse_before,
+            rmse_after=res.rmse_after, seconds=dt, kind=kind,
+            grids=int(out.grids)))
+        if verbose:
+            print(f"[{kind}] {consumer}: keep {int(keep.sum())}/{n_in} "
+                  f"rMSE {res.rmse_before:.4f}->{res.rmse_after:.4f} "
+                  f"({dt:.2f}s pipelined)", flush=True)
+        if checkpoint is not None:
+            checkpoint.maybe_save(i, {"p_run": p_run, "g_out": g_out,
+                                      "p_out": p_out,
+                                      "selections": selections,
+                                      "reports": reports,
+                                      "frontier_fallbacks": frontier_fallbacks})
+
+    def fence():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+
+    diag: list[tuple[float, float, float]] = []
+    for i, consumer, bottom, target, gate_only in items:
+        t0 = time.perf_counter()
+        n_out, n_in = p_run[consumer]["W"].shape[:2]
+        with _dispatch_guard(device):
+            try:
+                roll.advance_to(dev_run, bottom)
+                X = roll.patches_at(cache.plan, consumer)
+            except rolling_mod.FrontierError as exc:
+                raise _PipelineDegenerate(f"{consumer}: frontier fallback "
+                                          f"needed ({exc})") from exc
+            # rows were drawn against the first layer's row count
+            assert X.shape[0] == N, (consumer, X.shape[0], N)
+            if _PHASE_TIMING:
+                t_adv = fence()
+            W2d = dev_run[consumer]["W"]
+            b2d = dev_run[consumer].get("b")
+            if b2d is None:
+                b2d = torch.zeros(n_out, dtype=torch.float32, device=device)
+            t, others = targets[consumer]
+            # the sequential path's expression order: bit-identical targets
+            Yd = feats_dev[t] - b2d
+            try:
+                for o in others:
+                    Yd = Yd - roll.features_at(dev_run, cache.plan, o,
+                                               device=True)
+            except rolling_mod.FrontierError as exc:
+                raise _PipelineDegenerate(f"{consumer}: residual features "
+                                          f"fallback needed ({exc})") from exc
+            if _PHASE_TIMING:
+                t_tgt = fence()
+            out = prune_mod._fused_layer_solve(
+                X.float(), W2d, Yd, rows_d, target, float(cfg.dic.rank_tol),
+                float(cfg.solve.alpha), cfg.lasso.grid_size,
+                cfg.lasso.max_rounds, cfg.lasso.n_sweeps, cfg.solve.band,
+                float(cfg.solve.ls_ridge))
+            # the device-to-device running update: the next advance needs
+            # no host round trip
+            dev_run[consumer] = {"W": out.Wfull, "b": out.b}
+            host = _to_host_async(out, device)
+        if _PHASE_TIMING:
+            t_end = fence()
+            diag.append((t_adv - t0, t_tgt - t_adv, t_end - t_tgt))
+            print(f"[fenced-diag] {consumer}: advance+gather "
+                  f"{diag[-1][0]:.2f}s target-build {diag[-1][1]:.2f}s "
+                  f"fused-solve {diag[-1][2]:.2f}s", flush=True)
+        pending.append((i, consumer, host, n_in, gate_only, t0))
+        while len(pending) > 1:
+            drain_one()
+    while pending:
+        drain_one()
+    if _PHASE_TIMING and diag:
+        tot = [sum(d[k] for d in diag) for k in range(3)]
+        print(f"[fenced-diag] totals over {len(diag)} layers: "
+              f"advance+gather {tot[0]:.2f}s target-build {tot[1]:.2f}s "
+              f"fused-solve {tot[2]:.2f}s (fenced run: the pass overlaps "
+              f"these with the host's bookkeeping)", flush=True)
+    return g_out, p_out
+
+
 def solve_prune(graph: Graph, params: Mapping[str, Mapping[str, np.ndarray]],
                 cache: sampling.FrozenCache, cfg: Config,
                 channel_targets: Mapping[str, int] | None = None,
                 input_targets: Mapping[str, int] | None = None,
                 residual_compensate: bool = True, *, device,
-                checkpoint=None, verbose: bool = True) -> SolveResult:
-    """Sequential whole-model channel pruning.
+                checkpoint=None, verbose: bool = True,
+                _no_pipeline: bool = False) -> SolveResult:
+    """Whole-model channel pruning.
 
     * `channel_targets` maps a PRODUCER conv to its surviving output-channel
       count (e.g. models.vgg.VGG16_5X_CHANNELS): the producer is pruned by
@@ -239,13 +456,18 @@ def solve_prune(graph: Graph, params: Mapping[str, Mapping[str, np.ndarray]],
       against gt(block) - b - current(other bottoms), so the whole block
       output is reconstructed.
 
+    With `solve.fused_search` (the default) and a rolling frontier, the
+    layers go through the pipelined pass; a layer it cannot serve restarts
+    the solve on the sequential path (`_no_pipeline`), which also serves
+    `solve.fused_search=False`.
+
     `checkpoint` is a pipeline.checkpoint.SolveCheckpoint; its
     writes are asynchronous, so an exception joins the one in flight before
     it propagates (the last completed layer is on disk for the resume)."""
     try:
         return _solve_prune(graph, params, cache, cfg, channel_targets,
                             input_targets, residual_compensate, device,
-                            checkpoint, verbose)
+                            checkpoint, verbose, _no_pipeline)
     except BaseException:
         if checkpoint is not None:
             checkpoint.wait()
@@ -253,8 +475,8 @@ def solve_prune(graph: Graph, params: Mapping[str, Mapping[str, np.ndarray]],
 
 
 def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
-                 residual_compensate, device, checkpoint,
-                 verbose) -> SolveResult:
+                 residual_compensate, device, checkpoint, verbose,
+                 no_pipeline) -> SolveResult:
     check_supported(graph, cfg)
     device = torch.device(device)
     g_run = graph
@@ -284,25 +506,39 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
     feats_dev: dict[str, torch.Tensor] = {}   # ground truth, uploaded once
     roll = _maybe_rolling(g_run, cache, device)
 
-    for i, consumer in enumerate(g_run.convs):
-        if i <= resume_i:
-            continue
-        bottom = g_run.layer(consumer).bottoms[0]
-        producer = prune_mod.producer_conv(g_run, bottom, before=consumer)
-        # the JAX package's order: a gate target first; the first conv is
-        # skipped only as a channel target
-        target = None
-        gate_only = False
-        if input_targets is not None and consumer in input_targets:
-            target = input_targets[consumer]
-            gate_only = True
-        elif channel_targets is not None and producer is not None and i > 0:
-            target = channel_targets.get(producer)
-        if target is None:
-            continue
+    # the fused single-task solve cannot serve a 1x1 consumer under group
+    # lasso (select_and_reconstruct routes those to the group path)
+    grpl_block = cfg.dic.grplasso and any(
+        g_run.layer(c).conv_geometry()["kh"]
+        * g_run.layer(c).conv_geometry()["kw"] == 1 for c in g_run.convs)
+    if (not no_pipeline and roll is not None and cfg.solve.fused_search
+            and not grpl_block and (channel_targets or input_targets)):
+        try:
+            g_out, p_out = _pipelined_conv_pass(
+                g_run, p_run, dev_run, g_out, p_out, selections, reports,
+                cache, cfg, channel_targets, roll, checkpoint, resume_i,
+                verbose, device, frontier_fallbacks,
+                input_targets=input_targets,
+                residual_compensate=residual_compensate)
+        except _PipelineDegenerate as exc:
+            print(f"[pipeline] {exc}; restarting on the sequential path")
+            roll = dev_run = None      # release the frontier before rebuilding
+            return solve_prune(graph, params, cache, cfg,
+                               channel_targets=channel_targets,
+                               input_targets=input_targets,
+                               residual_compensate=residual_compensate,
+                               device=device, checkpoint=checkpoint,
+                               verbose=verbose, _no_pipeline=True)
+        if checkpoint is not None:
+            checkpoint.clear()
+        return SolveResult(graph=g_out, params=p_out, reports=reports,
+                           selections=selections,
+                           frontier_fallbacks=frontier_fallbacks,
+                           pipelined=True)
+
+    for i, consumer, bottom, target, gate_only in _layer_items(
+            g_run, p_run, channel_targets, input_targets, resume_i):
         n_in = p_run[consumer]["W"].shape[1]
-        if target >= n_in:
-            continue
         t0 = time.perf_counter()
         X = None
         if roll is not None:
@@ -353,7 +589,8 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
             subsample=cfg.lasso.subsample_rows, n_sweeps=cfg.lasso.n_sweeps,
             grid_size=cfg.lasso.grid_size, max_rounds=cfg.lasso.max_rounds,
             ridge=cfg.solve.ls_ridge, seed=cfg.sample.seed,
-            group=cfg.dic.grplasso, prefer=cfg.solve.band)
+            group=cfg.dic.grplasso, prefer=cfg.solve.band,
+            fused=cfg.solve.fused_search)
         t_end = time.perf_counter()
 
         # running graph: zero-scattered reconstruction (static shapes)

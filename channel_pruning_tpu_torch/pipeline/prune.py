@@ -3,17 +3,19 @@
 One layer: LASSO selection of the consumer's input channels on a row
 subsample (ops/lasso), least-squares reconstruction of the surviving
 weights on all rows (ops/lstsq), and installation into the output graph by
-pure graph rewrites (graph/rewrite.py). The host-stepped single-task
-path only: the group-lasso, alternating-refinement, autodet and fused
-one-program paths are not ported yet and raise.
+pure graph rewrites (graph/rewrite.py). Single-task selection, with the
+host-stepped search or the fused whole-layer solve (`_fused_layer_solve`,
+device tensors only); the group-lasso, alternating-refinement and autodet
+paths are not ported yet and raise.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Mapping
+from typing import Mapping, NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from channel_pruning_tpu_torch.graph import rewrite
 from channel_pruning_tpu_torch.graph.ir import Graph, LT
@@ -23,13 +25,61 @@ _CHANNEL_PRESERVING = (LT.RELU, LT.POOL, LT.DROPOUT, LT.BN, LT.SCALE)
 
 
 def _device_rel_error(X: torch.Tensor, W: torch.Tensor, b, Y: torch.Tensor
-                      ) -> float:
-    """rel_error(Y, X (*) W + b), reduced on the device; only the scalar
-    reaches the host."""
+                      ) -> torch.Tensor:
+    """rel_error(Y, X (*) W + b) as a 0-d tensor on the device."""
     pred = torch.einsum("nchw,ochw->no", X, W) + b
     num = torch.mean((Y - pred) ** 2)
     den = torch.mean(Y ** 2)
-    return float(torch.sqrt(num) / torch.sqrt(den + 1e-30))
+    return torch.sqrt(num) / torch.sqrt(den + 1e-30)
+
+
+def _rel_error(X: torch.Tensor, W: torch.Tensor, b, Y: torch.Tensor) -> float:
+    """`_device_rel_error` read on the host (the sequential path)."""
+    return float(_device_rel_error(X, W, b, Y))
+
+
+class FusedLayer(NamedTuple):
+    """`_fused_layer_solve`'s result, all device tensors."""
+    mask: torch.Tensor          # (c,) bool, the kept input channels
+    alpha: torch.Tensor         # ()
+    Wfull: torch.Tensor         # (n, c, kh, kw), 0 in the dropped channels
+    b: torch.Tensor             # (n,)
+    rmse_before: torch.Tensor   # ()
+    rmse_after: torch.Tensor    # ()
+    grids: torch.Tensor         # () the CD grids the search solved
+
+
+def _fused_layer_solve(Xd: torch.Tensor, W2d: torch.Tensor, Yd: torch.Tensor,
+                       rows: torch.Tensor, rank: int, rank_tol: float,
+                       alpha0: float, grid_size: int, max_rounds: int,
+                       n_sweeps: int, prefer: str, ridge: float) -> FusedLayer:
+    """The whole layer solve with no host read (port of the JAX package's
+    one-program `_fused_layer_solve`): rMSE before, Z on the row subsample
+    `rows`, the Gram, the fused alpha search, a full-width least-squares
+    fit with the dropped channels' columns zeroed, and rMSE after.
+
+    Zeroed columns give exactly-zero rows in the normal equations and
+    exactly-zero coefficients under the jitter, so the fit equals the
+    gather path's up to summation order, and `Wfull` is the zero-scattered
+    running weight itself."""
+    N, c, kh, kw = Xd.shape
+    n = W2d.shape[0]
+    rmse_before = _device_rel_error(Xd, W2d, 0.0, Yd)
+    Xs, Ys = Xd.index_select(0, rows), Yd.index_select(0, rows)
+    Z = lasso.build_channel_response(Xs, W2d)
+    gram = lasso.lasso_gram(Z, Ys.reshape(-1))
+    found = lasso._fused_search(gram.G, gram.b, gram.n_samples, rank,
+                                rank_tol, alpha0, grid_size, max_rounds,
+                                n_sweeps, prefer)
+    # mask[:, None].expand: repeat_interleave would read its size on the host
+    colmask = found.mask[:, None].expand(c, kh * kw).reshape(-1).to(Xd.dtype)
+    W, b = lstsq.fit_linear(Xd.reshape(N, c * kh * kw) * colmask, Yd,
+                            ridge=ridge)
+    Wfull = W.reshape(n, c, kh, kw)
+    return FusedLayer(mask=found.mask, alpha=found.alpha, Wfull=Wfull, b=b,
+                      rmse_before=rmse_before,
+                      rmse_after=_device_rel_error(Xd, Wfull, b, Yd),
+                      grids=found.grids)
 
 
 def producer_conv(graph: Graph, tensor: str, before: str | None = None) -> str | None:
@@ -69,24 +119,49 @@ def select_and_reconstruct(X: torch.Tensor, W2: np.ndarray, Y: torch.Tensor,
                            max_rounds: int = 8, ridge: float = 0.0,
                            seed: int = 0, group: bool = False,
                            alter_iters: int = 0, prefer: str = "top",
-                           fused: bool = False, autodet: bool = False
-                           ) -> PruneResult:
+                           fused: bool = False,
+                           pad_to: tuple[int, int] | None = None,
+                           autodet: bool = False) -> PruneResult:
     """One layer's LASSO selection + lstsq reconstruction.
 
     X: (N, c, kh, kw) consumer input patches of the current net and
     Y: (N, n) ground-truth responses with the bias subtracted, both on the
-    solve device; W2: (n, c, kh, kw) consumer weights."""
+    solve device; W2: (n, c, kh, kw) consumer weights. `fused` runs the
+    whole-layer solve `_fused_layer_solve` (an empty selection falls
+    through to the generic path's magnitude fallback); `pad_to` (c_pad,
+    n_pad) zero-pads its inputs first, which leaves the selection alone."""
     N, c, kh, kw = X.shape
-    if fused or autodet or alter_iters or (group and kh * kw == 1):
+    if autodet or alter_iters or (group and kh * kw == 1):
         raise NotImplementedError(
-            "only the host-stepped single-task selection is ported; the "
-            "fused search, autodet, alternating refinement and group lasso "
-            "are not")
+            "only single-task selection is ported; autodet, alternating "
+            "refinement and group lasso are not")
     rank = int(min(max(rank, 1), c))
     Xd = X.float()
     Yd = Y.float()
     W2d = torch.as_tensor(np.asarray(W2, np.float32), device=Xd.device)
-    rmse_before = _device_rel_error(Xd, W2d, 0.0, Yd)
+    if fused and rank < c:
+        n_sub = min(subsample, max(N // 20, 1))
+        rows = np.random.default_rng(seed).integers(0, N, size=n_sub)
+        Xp, Yp, W2p = Xd, Yd, W2d
+        n_out = W2d.shape[0]
+        if pad_to is not None:
+            # padded locals only: the fall-through below works unpadded
+            c_pad, n_pad = max(pad_to[0], c), max(pad_to[1], n_out)
+            Xp = F.pad(Xp, (0, 0, 0, 0, 0, c_pad - c))
+            W2p = F.pad(W2p, (0, 0, 0, 0, 0, c_pad - c, 0, n_pad - n_out))
+            Yp = F.pad(Yp, (0, n_pad - n_out))
+        out = _fused_layer_solve(
+            Xp, W2p, Yp, torch.as_tensor(rows, device=Xd.device), rank,
+            float(rank_tol), float(alpha0), grid_size, max_rounds, n_sweeps,
+            prefer, float(ridge))
+        keep = out.mask.cpu().numpy()[:c]
+        if keep.sum() > 0:
+            return PruneResult(
+                keep=keep, W=out.Wfull.cpu().numpy()[:n_out, :c][:, keep],
+                b=out.b.cpu().numpy()[:n_out], alpha=float(out.alpha),
+                rmse_before=float(out.rmse_before),
+                rmse_after=float(out.rmse_after))
+    rmse_before = _rel_error(Xd, W2d, 0.0, Yd)
 
     if rank >= c:
         keep = np.ones(c, bool)
@@ -95,7 +170,8 @@ def select_and_reconstruct(X: torch.Tensor, W2: np.ndarray, Y: torch.Tensor,
         keep, alpha, _ = lasso.select_channels(
             Xd, W2d, Yd, rank, alpha0=alpha0, rank_tol=rank_tol,
             subsample=subsample, seed=seed, grid_size=grid_size,
-            max_rounds=max_rounds, n_sweeps=n_sweeps, prefer=prefer)
+            max_rounds=max_rounds, n_sweeps=n_sweeps, prefer=prefer,
+            fused=fused)
         if keep.sum() == 0:
             # degenerate layer (LASSO kills everything at every probed
             # alpha): magnitude selection keeps the graph well-formed
@@ -110,7 +186,7 @@ def select_and_reconstruct(X: torch.Tensor, W2: np.ndarray, Y: torch.Tensor,
     Wfull = torch.zeros((Yd.shape[1], c, kh, kw), dtype=torch.float32,
                         device=Xd.device)
     Wfull[:, keep_idx] = W.reshape(Yd.shape[1], n_keep, kh, kw)
-    rmse_after = _device_rel_error(Xd, Wfull, b, Yd)
+    rmse_after = _rel_error(Xd, Wfull, b, Yd)
     return PruneResult(keep=np.asarray(keep, bool),
                        W=W.reshape(Yd.shape[1], n_keep, kh, kw).cpu().numpy(),
                        b=b.cpu().numpy(), alpha=float(alpha),

@@ -12,8 +12,11 @@ intermediates (VGG-16 at 500 images: 6.4 GB + 1.3 GB).
 graphs, whose frontier is the cut of tensors still needed by later layers
 (for ResNet: the block input riding the shortcut plus the branch tensor).
 Eager PyTorch needs no compiled segments: a segment is a plain loop of
-`ops/forward.compute_layer` over the graph's layers. `FrontierError` is the
-only exception a caller may treat as "fall back to a full replay".
+`ops/forward.compute_layer` over the graph's layers. Given the solve's
+point plan at construction, the frontier uploads its indices once, so
+`advance_to`, `patches_at` and `features_at(device=True)` make no blocking
+copy. `FrontierError` is the only exception a caller may treat as "fall
+back to a full replay".
 """
 from __future__ import annotations
 
@@ -92,11 +95,27 @@ def _forward(layers, env: dict[str, torch.Tensor], params,
             return
 
 
+def _upload_plan(plan, device) -> dict[str, tuple[torch.Tensor, torch.Tensor]]:
+    """Every tensor's (ys, xs) of a point plan on the device, through one
+    host-to-device copy: each is a view of one flat int64 tensor."""
+    if not plan:
+        return {}
+    arrays = [np.asarray(a, np.int64) for pair in plan.values() for a in pair]
+    flat = torch.as_tensor(np.concatenate([a.ravel() for a in arrays]),
+                           device=device)
+    views = [v.view(a.shape) for v, a in
+             zip(torch.split(flat, [a.size for a in arrays]), arrays)]
+    return {t: (views[2 * k], views[2 * k + 1]) for k, t in enumerate(plan)}
+
+
 class _Groups:
     """The calibration set as uniform groups of `group_batches` batches on
-    the device, and the per-group point slices of a plan."""
+    the device, and the per-group point slices of a plan. The frontier's
+    own plan (`plan`) goes to the device once, at construction, so no
+    gather waits on a host-to-device copy; any other plan is uploaded per
+    call."""
 
-    def __init__(self, inputs, group_batches: int, device):
+    def __init__(self, inputs, group_batches: int, device, plan=None):
         n_batches = inputs.shape[0]
         step = min(group_batches, n_batches)
         while n_batches % step:
@@ -104,6 +123,8 @@ class _Groups:
         self.group_batches = step
         self.n_groups = n_batches // step
         self.device = device
+        self.plan = plan
+        self._plan_dev = _upload_plan(plan, device) if plan is not None else {}
 
     def upload(self, inputs) -> list[torch.Tensor]:
         step = self.group_batches
@@ -111,8 +132,11 @@ class _Groups:
                 for lo in range(0, self.n_groups * step, step)]
 
     def points(self, plan, tensor: str, gi: int):
-        ys, xs = plan[tensor]
         lo, hi = gi * self.group_batches, (gi + 1) * self.group_batches
+        if plan is self.plan and tensor in self._plan_dev:
+            ys, xs = self._plan_dev[tensor]
+            return ys[lo:hi], xs[lo:hi]
+        ys, xs = plan[tensor]
         return (torch.as_tensor(ys[lo:hi], dtype=torch.long, device=self.device),
                 torch.as_tensor(xs[lo:hi], dtype=torch.long, device=self.device))
 
@@ -136,9 +160,10 @@ class RollingReplay:
     """Device-resident activation frontier of a chain graph over the
     calibration set, stored as per-group chunks of `group_batches` batches."""
 
-    def __init__(self, graph: Graph, inputs, *, device, group_batches: int = 10):
+    def __init__(self, graph: Graph, inputs, *, device, group_batches: int = 10,
+                 plan=None):
         self.graph = graph
-        self._g = _Groups(inputs, group_batches, device)
+        self._g = _Groups(inputs, group_batches, device, plan)
         self.groups: list[torch.Tensor] = self._g.upload(inputs)
         self.tensor = graph.inputs[0].name
 
@@ -199,9 +224,10 @@ class RollingReplayDAG:
     tensors still needed by later layers, {tensor: [per-group tensors]};
     same O(L) conv work and the same API as `RollingReplay`."""
 
-    def __init__(self, graph: Graph, inputs, *, device, group_batches: int = 10):
+    def __init__(self, graph: Graph, inputs, *, device, group_batches: int = 10,
+                 plan=None):
         self.graph = graph
-        self._g = _Groups(inputs, group_batches, device)
+        self._g = _Groups(inputs, group_batches, device, plan)
         self.state: dict[str, list[torch.Tensor]] = {
             graph.inputs[0].name: self._g.upload(inputs)}
         self.pos = -1                      # index of the last executed layer

@@ -9,38 +9,45 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
   2. build the LASSO CD kernels K1 and K2 (csrc/lasso_cd.cu) from the
      checkout, and print ptxas's registers / shared memory per kernel;
   3. K1 against its plain PyTorch version on the card at c = 256 and
-     c = 512 with a 32-alpha grid over the full 200 sweeps: identical
-     supports, max|K1-plain| = 0, the same sweeps and nonzero steps for
-     every alpha; then K1 against the previous kernel (v1) at c = 512 and
-     c = 1024: equal bit for bit, timed in turns (v1, new, new, v1) with
-     CUDA events; each time printed beside the sweeps and nonzero steps
-     (min/median/max over the alphas), the FLOPs and bytes that work needs,
-     and the bound they give on this card;
-  3b. K2 against the plain version at c = 2048 and c = 4096 (1x1 patches,
-     the shape of a res5 gate), 32 alphas, over 3 sweeps (a full plain grid
-     at c = 2048 takes about a minute): identical supports, max|K2-plain|
-     = 0, the same stats; then K2 against v1 over the full 200 sweeps, equal
-     bit for bit and timed in turns, with the same lines;
-  4. the port on the card against the port on the CPU on the tiny VGG:
-     identical selections; the same on the tiny ResNet (Select gates,
-     residual compensation, DAG frontier, band=bottom);
+     c = 512 with a 16-alpha grid (the search's grid) over the full 200
+     sweeps: identical supports, max|K1-plain| = 0, the same sweeps and
+     nonzero steps for every alpha; then K1 alone at c = 512 and 1024, timed
+     with CUDA events, each time printed beside the sweeps and nonzero
+     steps (min/median/max over the alphas), the FLOPs and bytes that work
+     needs, and the bound they give on this card; and alphas of +inf (the
+     fused search's rounds after it is done): betas exactly 0, one sweep
+     and no nonzero step for every alpha;
+  3b. the same for K2 at c = 2048 and c = 4096 (1x1 patches, the shape of
+     a res5 gate), against the plain version over 3 sweeps (a full plain
+     grid at c = 2048 takes about a minute), timed over 3 and 200 sweeps;
+  4. the tiny VGG and the tiny ResNet (Select gates, residual compensation,
+     DAG frontier, band=bottom) through the default pipelined pass on the
+     card and on the CPU, and the sequential pass on the card: identical
+     selections, and the pipelined pass runs to its end;
   5. the main path, `cli prune --model vgg16 --mode prune --speed 5.0
-     --device cuda` with its defaults (50 x 10 synthetic calibration
-     images, random He-init weights): keep counts equal the released 5x
-     table, the first layer starts from an exact input, reconstruction
-     beats the accumulated error from the third pruned layer on (the first
-     two end above their start on random weights in the JAX package too,
-     and are held to fixed bounds near their observed values), the kernel
-     was launched, and the exported model reloads and runs to finite
-     probabilities that sum to 1;
+     --device cuda` with its defaults (the pipelined pass with the fused
+     search; 50 x 10 synthetic calibration images, random He-init weights):
+     the pass runs to its end with no restart, every layer's dispatch under
+     torch.cuda.set_sync_debug_mode("error") (a host sync there raises),
+     keep counts equal the released 5x table, the first layer starts from
+     an exact input, reconstruction beats the accumulated error from the
+     third pruned layer on (the first two end above their start on random
+     weights in the JAX package too, and are held to fixed bounds near
+     their observed values), the kernel was launched, and the exported
+     model reloads and runs to finite probabilities that sum to 1;
   5b. the second main path, `cli prune --model resnet50 --mode prune
-     --speed 2.0 --device cuda` with its defaults: all 32 branch2a/2b widths
+     --speed 2.0 --device cuda`, the same way: all 32 branch2a/2b widths
      inside the released band [t, round(1.1 t)] (tools/band_check.py's
      rule), 16 Select gates with keep counts inside the same band against
      the released Filter table, K2 (res5b/res5c gates, c = 2048) and K1
      both launched, every rMSE finite (on random weights after < before
      does not hold in the JAX package either), and the exported model
      reloads and gives probabilities;
+  5c. both main paths once more on the sequential path
+     (`--set solve.fused_search=False`): the same keep counts and bands;
+     how many layers select as the pipelined pass and the lowest per-layer
+     IoU are printed (float32 against float64 grid endpoints may move a
+     near-tie probe on random weights);
   6. with --profile only: each main path once more under torch.profiler,
      with the device's busy time, idle share, the CD kernels' share and the
      top kernels.
@@ -73,10 +80,13 @@ def _card_line() -> str:
     return out.stdout.strip()
 
 
+A_GRID = 16     # the search's grid (lasso.grid_size), the main path's shape
+
+
 def _cd_problem(seed: int, c: int, device, k: int = 3, n: int | None = None):
     """A LASSO Gram at main-path shape: Z from post-ReLU k x k patches of 250
     rows (the layer's row subsample) against He-init weights of an n-wide
-    consumer (n = c by default)."""
+    consumer (n = c by default), and a 16-alpha geometric grid."""
     import torch
 
     from channel_pruning_tpu_torch.ops import lasso
@@ -91,8 +101,8 @@ def _cd_problem(seed: int, c: int, device, k: int = 3, n: int | None = None):
         rng.normal(size=Z.shape[0]).astype(np.float32)).to(device)
     gram = lasso.lasso_gram(Z, y)
     a_max = float(gram.b.abs().max()) / gram.n_samples
-    alphas = torch.as_tensor(np.geomspace(1e-3 * a_max, a_max, 32) * gram.n_samples,
-                             dtype=torch.float32).to(device)
+    alphas = torch.as_tensor(np.geomspace(1e-3 * a_max, a_max, A_GRID)
+                             * gram.n_samples, dtype=torch.float32).to(device)
     return gram, alphas
 
 
@@ -135,33 +145,23 @@ def _spread(x) -> str:
     return f"{int(np.min(x))}/{int(np.median(x))}/{int(np.max(x))}"
 
 
-def _new_vs_v1(label: str, new, v1, reps: int):
-    """Times of the new kernel and v1 in turns (v1, new, new, v1) within one
-    process; both results must be equal bit for bit. Returns (new ms, v1 ms,
-    the new kernel's result)."""
+def _timed(label: str, c: int, solve, reps: int) -> dict:
+    """One kernel alone: a warm-up, then the mean of `reps` launches from
+    CUDA events, printed beside the work its stats count and the bound."""
     import torch
 
-    new()                                                          # warm-up
-    v1()
-    v1_a, ref = _time_ms(v1, reps)
-    new_a, got = _time_ms(new, reps)
-    new_b, _ = _time_ms(new, reps)
-    v1_b, _ = _time_ms(v1, reps)
-    if not torch.equal(got, ref):
-        raise AssertionError(f"{label}: new and v1 differ by "
-                             f"{float((got - ref).abs().max())}")
-    return (new_a + new_b) / 2, (v1_a + v1_b) / 2, got
-
-
-def _report(label: str, c: int, ms: float, v1_ms: float, stats, A: int) -> dict:
-    bound = _cd_bound(c, A, stats)
-    print(f"[kernel] {label} c={c} A={A}: new {ms:.3f} ms, v1 {v1_ms:.3f} ms "
-          f"({v1_ms / ms:.1f}x); sweeps min/median/max {_spread(stats[:, 0])}, "
-          f"nonzero steps {_spread(stats[:, 1])}; {bound['flops']:,} FLOP, "
-          f"{bound['bytes']:,} B, bound {bound['bound_ms']:.4f} ms by "
-          f"{bound['bound_by']} ({100 * bound['bound_ms'] / ms:.2f}% of it)",
-          flush=True)
-    return bound
+    A = A_GRID
+    stats = torch.zeros((A, 2), dtype=torch.int32, device="cuda")
+    solve(stats)                                                   # warm-up
+    ms, _ = _time_ms(lambda: solve(None), reps)
+    st = stats.cpu().numpy()
+    bound = _cd_bound(c, A, st)
+    print(f"[kernel] {label} c={c} A={A}: {ms:.3f} ms; sweeps min/median/max "
+          f"{_spread(st[:, 0])}, nonzero steps {_spread(st[:, 1])}; "
+          f"{bound['flops']:,} FLOP, {bound['bytes']:,} B, bound "
+          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+          f"({100 * bound['bound_ms'] / ms:.2f}% of it)", flush=True)
+    return {"ms": ms, **bound}
 
 
 def _check_vs_plain(label: str, c: int, got, ref, stats, stats_ref) -> float:
@@ -180,16 +180,36 @@ def _check_vs_plain(label: str, c: int, got, ref, stats, stats_ref) -> float:
     return err
 
 
-def phase_kernel_vs_plain(device) -> dict:
-    """K1 against its plain version over the full 200 sweeps at c = 256 and
-    c = 512 (bit for bit, the same stats), and against v1 at c = 512 and
-    1024 (bit for bit, timed in turns). The returned numbers are those at
-    c = 512, the widest consumer input of the VGG path."""
+def _inf_skip(label: str, gram, device) -> None:
+    """Alphas of +inf, as the fused search passes once it is done: betas
+    exactly 0 and one sweep with no nonzero step for every alpha."""
     import torch
 
     from channel_pruning_tpu_torch.kernels import lasso_cd
 
-    A = 32
+    alphas = torch.full((A_GRID,), float("inf"), device=device)
+    stats = torch.zeros((A_GRID, 2), dtype=torch.int32, device=device)
+    ms, got = _time_ms(lambda: lasso_cd.cd_solve_grid(gram.G, gram.b, alphas,
+                                                      stats=stats), 1)
+    st = stats.cpu().numpy()
+    if not (torch.equal(got, torch.zeros_like(got)) and (st[:, 0] == 1).all()
+            and (st[:, 1] == 0).all()):
+        raise AssertionError(f"{label}: +inf alphas gave betas max "
+                             f"{float(got.abs().max())}, stats {st.tolist()}")
+    print(f"[kernel] {label} alphas +inf: betas all 0, one sweep and no "
+          f"nonzero step for each of {A_GRID} alphas ({ms:.3f} ms)", flush=True)
+
+
+def phase_kernel_vs_plain(device) -> dict:
+    """K1 against its plain version over the full 200 sweeps at c = 256 and
+    c = 512 (bit for bit, the same stats), K1 alone timed at c = 512 and
+    1024, and the +inf skip. The returned numbers are those at c = 512, the
+    widest consumer input of the VGG path."""
+    import torch
+
+    from channel_pruning_tpu_torch.kernels import lasso_cd
+
+    A = A_GRID
     for seed, c in ((0, 256), (1, 512)):
         gram, alphas = _cd_problem(seed, c, device)
         stats = torch.zeros((A, 2), dtype=torch.int32, device=device)
@@ -204,79 +224,94 @@ def phase_kernel_vs_plain(device) -> dict:
     out = {"max_abs_err": err, "plain_ms": plain_ms, "c": 512, "n_sweeps": 200}
     for seed, c in ((1, 512), (4, 1024)):
         gram, alphas = _cd_problem(seed, c, device)
-        ms, v1_ms, _ = _new_vs_v1(
-            f"K1 c={c}", lambda: lasso_cd.cd_solve_grid(gram.G, gram.b, alphas),
-            lambda: lasso_cd.cd_solve_grid_v1(gram.G, gram.b, alphas), 5)
-        stats = torch.zeros((A, 2), dtype=torch.int32, device=device)
-        lasso_cd.cd_solve_grid(gram.G, gram.b, alphas, stats=stats)
-        bound = _report("K1 = v1 bit for bit,", c, ms, v1_ms,
-                        stats.cpu().numpy(), A)
+        t = _timed("K1", c, lambda st: lasso_cd.cd_solve_grid(
+            gram.G, gram.b, alphas, stats=st), 5)
         if c == 512:
-            out.update(ms=ms, v1_ms=v1_ms, bound_ms=bound["bound_ms"],
-                       bound_by=bound["bound_by"], flops=bound["flops"],
-                       bytes=bound["bytes"])
+            out.update(t)
+            _inf_skip("K1 c=512", gram, device)
         else:
-            out.update(ms_c1024=ms, v1_ms_c1024=v1_ms)
+            out["ms_c1024"] = t["ms"]
     return out
 
 
 def phase_stream_vs_plain(device) -> dict:
     """K2, through the dispatch, against the plain version over 3 sweeps at
-    c = 2048 (res5b/res5c) and c = 4096 (bit for bit, the same stats, v1
-    timed beside it), then against v1 over the full 200 sweeps (bit for bit,
-    timed in turns). The returned numbers are those at c = 2048 over 3
-    sweeps, where the plain version can be timed (a full plain grid takes
-    about a minute), with the 200-sweep times beside them."""
+    c = 2048 (res5b/res5c) and c = 4096 (bit for bit, the same stats), K2
+    alone timed over 3 and over the full 200 sweeps, and the +inf skip. The
+    returned numbers are those at c = 2048 over 3 sweeps, where the plain
+    version can be timed (a full plain grid takes about a minute), with the
+    200-sweep times beside them."""
     import torch
 
     from channel_pruning_tpu_torch.kernels import lasso_cd
 
-    A, out = 32, {}
+    A, out = A_GRID, {}
     for seed, c in ((2, 2048), (3, 4096)):
         gram, alphas = _cd_problem(seed, c, device, k=1, n=512)
         stats = torch.zeros((A, 2), dtype=torch.int32, device=device)
         stats_ref = torch.zeros_like(stats)
         before = (lasso_cd.LAUNCHES, lasso_cd.LAUNCHES_STREAM)
-        lasso_cd.cd_solve_grid(gram.G, gram.b, alphas, n_sweeps=3, stats=stats)
+        got = lasso_cd.cd_solve_grid(gram.G, gram.b, alphas, n_sweeps=3,
+                                     stats=stats)
         if (lasso_cd.LAUNCHES, lasso_cd.LAUNCHES_STREAM) != (before[0], before[1] + 1):
             raise AssertionError(f"c={c}: the dispatch did not launch K2 alone")
-        ms3, v1_3, got = _new_vs_v1(
-            f"K2 c={c} 3 sweeps",
-            lambda: lasso_cd.cd_solve_grid(gram.G, gram.b, alphas, n_sweeps=3),
-            lambda: lasso_cd.cd_solve_grid_v1(gram.G, gram.b, alphas, n_sweeps=3,
-                                              stream=True), 5)
         plain3, ref = _time_ms(lambda: lasso_cd.cd_solve_grid_plain(
             gram.G, gram.b, alphas, n_sweeps=3, stats=stats_ref), 1)
         err = _check_vs_plain("K2", c, got, ref, stats, stats_ref)
-        bound3 = _report("K2 = plain = v1 bit for bit over 3 sweeps,", c, ms3,
-                         v1_3, stats.cpu().numpy(), A)
-        print(f"[kernel] K2 c={c}: plain {plain3:.1f} ms over 3 sweeps", flush=True)
-        ms200, v1_200, _ = _new_vs_v1(
-            f"K2 c={c}", lambda: lasso_cd.cd_solve_grid(gram.G, gram.b, alphas),
-            lambda: lasso_cd.cd_solve_grid_v1(gram.G, gram.b, alphas,
-                                              stream=True), 3)
-        lasso_cd.cd_solve_grid(gram.G, gram.b, alphas, stats=stats)
-        bound200 = _report("K2 = v1 bit for bit, 200 sweeps,", c, ms200, v1_200,
-                           stats.cpu().numpy(), A)
+        print(f"[kernel] K2 c={c} A={A}, 3 sweeps: supports and stats "
+              f"identical, max|K2-plain| {err:.1e}; plain {plain3:.1f} ms",
+              flush=True)
+        t3 = _timed("K2 3 sweeps", c, lambda st: lasso_cd.cd_solve_grid(
+            gram.G, gram.b, alphas, n_sweeps=3, stats=st), 5)
+        t200 = _timed("K2 200 sweeps", c, lambda st: lasso_cd.cd_solve_grid(
+            gram.G, gram.b, alphas, stats=st), 3)
         if c == 2048:
-            out.update(max_abs_err=err, ms=ms3, plain_ms=plain3, v1_ms=v1_3,
-                       bound_ms=bound3["bound_ms"], bound_by=bound3["bound_by"],
-                       flops=bound3["flops"], bytes=bound3["bytes"], c=2048,
-                       n_sweeps=3, ms_200_sweeps=ms200, v1_ms_200_sweeps=v1_200,
-                       bound_ms_200_sweeps=bound200["bound_ms"])
+            out.update(t3, max_abs_err=err, plain_ms=plain3, c=2048,
+                       n_sweeps=3, ms_200_sweeps=t200["ms"],
+                       bound_ms_200_sweeps=t200["bound_ms"])
+            _inf_skip("K2 c=2048", gram, device)
         else:
-            out.update(ms_200_sweeps_c4096=ms200, v1_ms_200_sweeps_c4096=v1_200,
+            out.update(ms_200_sweeps_c4096=t200["ms"],
                        max_abs_err=max(out["max_abs_err"], err))
         del gram, alphas, got, ref
     return out
 
 
-def phase_tiny_vgg(device) -> None:
+def _tiny_agree(label: str, g, p, inputs, cfg, device, n_points: int,
+                share_key=None, **targets) -> dict:
+    """The pipelined pass on the card and on the CPU and the sequential pass
+    on the card: identical selections, and the pipelined runs end without a
+    restart."""
     import torch
 
     from channel_pruning_tpu_torch.convert import params_to_torch
     from channel_pruning_tpu_torch.pipeline import c3
     from channel_pruning_tpu_torch.sampling import sampler
+
+    runs = {}
+    for name, dev, fused in (("card", device, True),
+                             ("cpu", torch.device("cpu"), True),
+                             ("card sequential", device, False)):
+        cache = sampler.freeze(g, params_to_torch(p, dev), inputs, device=dev,
+                               n_points=n_points, seed=0, chunk_batches=4,
+                               share_key=share_key)
+        runs[name] = c3.solve_prune(
+            g, p, cache, cfg.replace_nested("solve.fused_search", fused),
+            device=dev, verbose=False, **targets)
+    sel = {k: r.selections for k, r in runs.items()}
+    ref = sel["cpu"]
+    if any(s.keys() != ref.keys() or any(not np.array_equal(s[k], ref[k])
+                                         for k in ref) for s in sel.values()):
+        raise AssertionError(f"{label} selections differ: {sel}")
+    if not (runs["card"].pipelined and runs["cpu"].pipelined):
+        raise AssertionError(f"{label}: the pipelined pass did not run to its end")
+    print(f"[{label}] pipelined on the card, pipelined on the CPU and "
+          f"sequential on the card select identically in {len(ref)} layers",
+          flush=True)
+    return runs
+
+
+def phase_tiny_vgg(device) -> None:
     from channel_pruning_tpu_torch.graph.rewrite import split_relu
     from channel_pruning_tpu_torch.models.vgg import build_tiny_vgg
     from channel_pruning_tpu_torch.utils.config import default_config
@@ -284,27 +319,13 @@ def phase_tiny_vgg(device) -> None:
     g, params = build_tiny_vgg(batch=4, image_size=16)
     g = split_relu(g)
     inputs = np.random.default_rng(7).normal(0, 1, (8, 4, 3, 16, 16)).astype(np.float32)
-    cfg = default_config().replace_nested("solve.fused_search", False)
-    sel = {}
-    for dev in (device, torch.device("cpu")):
-        cache = sampler.freeze(g, params_to_torch(params, dev), inputs,
-                               device=dev, n_points=10, seed=0, chunk_batches=4)
-        sel[dev.type] = c3.solve_prune(g, params, cache, cfg,
-                                       channel_targets=TINY_TARGETS,
-                                       device=dev, verbose=False).selections
-    if sel["cuda"].keys() != sel["cpu"].keys() or any(
-            not np.array_equal(sel["cuda"][k], sel["cpu"][k]) for k in sel["cpu"]):
-        raise AssertionError(f"tiny VGG selections differ: {sel}")
-    print(f"[tiny_vgg] card and CPU select identically in "
-          f"{len(sel['cpu'])} layers", flush=True)
+    _tiny_agree("tiny_vgg", g, params, inputs, default_config(), device, 10,
+                channel_targets=TINY_TARGETS)
 
 
 def phase_tiny_resnet(device) -> None:
     """Gates on every block input and shrink targets on branch2a/2b, as in
-    tests/test_resnet_pipeline.py, band=bottom: card and CPU select alike."""
-    import torch
-
-    from channel_pruning_tpu_torch.convert import params_to_torch
+    tests/test_resnet_pipeline.py, band=bottom."""
     from channel_pruning_tpu_torch.pipeline import c3
     from channel_pruning_tpu_torch.sampling import sampler
     from channel_pruning_tpu_torch.graph.ir import LT
@@ -313,46 +334,52 @@ def phase_tiny_resnet(device) -> None:
 
     g, p = c3.preprocess(*build_tiny_resnet(batch=4, image_size=32))
     inputs = np.random.default_rng(11).normal(0, 1, (8, 4, 3, 32, 32)).astype(np.float32)
-    cfg = default_config().replace_nested("solve.fused_search", False) \
-        .replace_nested("solve.band", "bottom")
+    cfg = default_config().replace_nested("solve.band", "bottom")
     ct = {c: max(2, int(int(g.layer(c).attr("num_output")) * 0.7))
           for c in g.convs if c.endswith(("branch2a", "branch2b"))}
     it = {c: max(2, int(p[c]["W"].shape[1] * 0.7))
           for c in g.convs if c.endswith("branch2a")}
-    res = {}
-    for dev in (device, torch.device("cpu")):
-        cache = sampler.freeze(g, params_to_torch(p, dev), inputs, device=dev,
-                               n_points=8, seed=0, chunk_batches=4,
-                               share_key=sampler.resnet_share_key(g))
-        res[dev.type] = c3.solve_prune(g, p, cache, cfg, channel_targets=ct,
-                                       input_targets=it, device=dev, verbose=False)
-    sel = {k: r.selections for k, r in res.items()}
-    if sel["cuda"].keys() != sel["cpu"].keys() or any(
-            not np.array_equal(sel["cuda"][k], sel["cpu"][k]) for k in sel["cpu"]):
-        raise AssertionError(f"tiny ResNet selections differ: {sel}")
-    gates = len(res["cuda"].graph.by_type(LT.SELECT))
+    runs = _tiny_agree("tiny_resnet", g, p, inputs, cfg, device, 8,
+                       share_key=sampler.resnet_share_key(g),
+                       channel_targets=ct, input_targets=it)
+    gates = len(runs["card"].graph.by_type(LT.SELECT))
     if gates != len(it):
         raise AssertionError(f"{gates} Select gates, want {len(it)}")
-    print(f"[tiny_resnet] card and CPU select identically in "
-          f"{len(sel['cpu'])} layers ({gates} Select gates)", flush=True)
+    print(f"[tiny_resnet] {gates} Select gates", flush=True)
 
 
-def _prune_vgg16(work: Path):
+def _prune(model: str, speed: str, work: Path, *extra: str):
     from channel_pruning_tpu_torch import cli
 
     shutil.rmtree(work, ignore_errors=True)
-    return cli.main(["prune", "--model", "vgg16", "--mode", "prune",
-                     "--speed", "5.0", "--device", "cuda",
-                     "--work-dir", str(work)])
+    return cli.main(["prune", "--model", model, "--mode", "prune",
+                     "--speed", speed, "--device", "cuda",
+                     "--work-dir", str(work), *extra])
 
 
-def _prune_resnet50(work: Path):
-    from channel_pruning_tpu_torch import cli
+def _prune_vgg16(work: Path, *extra: str):
+    return _prune("vgg16", "5.0", work, *extra)
 
-    shutil.rmtree(work, ignore_errors=True)
-    return cli.main(["prune", "--model", "resnet50", "--mode", "prune",
-                     "--speed", "2.0", "--device", "cuda",
-                     "--work-dir", str(work)])
+
+def _prune_resnet50(work: Path, *extra: str):
+    return _prune("resnet50", "2.0", work, *extra)
+
+
+def _check_pipelined(label: str, res) -> None:
+    """The pipelined pass ran to its end (no restart on the sequential
+    path), with each layer's dispatch under the sync check."""
+    from channel_pruning_tpu_torch.pipeline import c3
+
+    if not c3.CHECK_DISPATCH_SYNC:
+        raise AssertionError("the dispatch sync check is off")
+    if not res.pipelined or any(r.grids is None for r in res.reports):
+        raise AssertionError(f"{label}: the pipelined pass did not run to "
+                             "its end")
+    grids = [r.grids for r in res.reports]
+    print(f"[{label}] pipelined pass ran to its end, no restart; every "
+          f"layer's dispatch passed set_sync_debug_mode('error'); CD grids "
+          f"solved per layer min/median/max {_spread(grids)}, total "
+          f"{sum(grids)}", flush=True)
 
 
 def phase_profile(label: str, prune, wall: float) -> None:
@@ -384,7 +411,7 @@ def phase_profile(label: str, prune, wall: float) -> None:
         print(f"[profile] {label} {s:8.3f}s {100 * s / busy:5.1f}% {n:6d}x {key[:100]}")
 
 
-def phase_main_path(device) -> tuple[dict[str, int], float]:
+def phase_main_path(device):
     import torch
 
     from channel_pruning_tpu_torch.convert import params_to_torch
@@ -392,7 +419,7 @@ def phase_main_path(device) -> tuple[dict[str, int], float]:
     from channel_pruning_tpu_torch.ops.forward import run_graph
     from channel_pruning_tpu_torch.sampling.inputs import SyntheticInputs
     from channel_pruning_tpu_torch.io.caffe import import_model
-    from channel_pruning_tpu_torch.models.vgg import VGG16_5X_CHANNELS, build_vgg16
+    from channel_pruning_tpu_torch.models.vgg import build_vgg16
     from channel_pruning_tpu_torch.utils.flops import total_flops
 
     work = WORK / "vgg16"
@@ -404,10 +431,8 @@ def phase_main_path(device) -> tuple[dict[str, int], float]:
     launches = {"k1": lasso_cd.LAUNCHES, "k2": lasso_cd.LAUNCHES_STREAM}
     peak = torch.cuda.max_memory_allocated(device)
 
-    pruned = {p: t for p, t in VGG16_5X_CHANNELS.items() if t < 512}
-    got = {p: int(res.params[p]["W"].shape[0]) for p in pruned}
-    if got != pruned:
-        raise AssertionError(f"keep counts {got} != released table {pruned}")
+    _check_pipelined("main", res)
+    _check_vgg_counts(work, res)
     # conv1_2 starts from an exact input (rMSE ~0, 0.345 after on the card);
     # conv2_1, keeping 22 of 64 random-weight channels, ends above its start
     # in the JAX package too (tests/test_torch_pipeline.py::
@@ -434,17 +459,17 @@ def phase_main_path(device) -> tuple[dict[str, int], float]:
 
     orig = total_flops(build_vgg16(), include_fc=False)
     new = total_flops(g, include_fc=False)
-    print("[main] layer       keep      rMSE before -> after   replay s  solve s")
+    print("[main] layer       keep      rMSE before -> after   grids  dispatch-to-drain s")
     for r in res.reports:
         print(f"[main] {r.conv:<10s} {r.kept:>4d}/{r.total:<4d} {r.rmse_before:.4f} -> "
-              f"{r.rmse_after:.4f}      {r.replay_seconds:7.3f}  {r.solve_seconds:7.3f}")
+              f"{r.rmse_after:.4f}      {r.grids:5d}  {r.seconds:7.3f}")
     print("[main] wall " + " ".join(f"{k} {v:.2f}s" for k, v in res.wall.items())
           + f"; total {wall:.2f}s; conv mults {orig:,} -> {new:,} "
           f"({orig / new:.2f}x); kernel launches K1 {launches['k1']} "
           f"K2 {launches['k2']}; "
           f"peak device memory {peak / 2**30:.2f} GiB; exported model reloads, "
           f"probabilities sum to 1", flush=True)
-    return launches, wall
+    return launches, wall, res
 
 
 def _check_band(name: str, target: int, got, tol: float = 0.1) -> bool:
@@ -452,36 +477,16 @@ def _check_band(name: str, target: int, got, tol: float = 0.1) -> bool:
     return got is not None and target <= got <= int(round(target * (1 + tol)))
 
 
-def phase_resnet50(device) -> tuple[dict[str, int], float]:
-    """The ResNet-50 2x main path through the CLI with its defaults."""
-    import torch
-
-    from channel_pruning_tpu_torch.convert import params_to_torch
-    from channel_pruning_tpu_torch.kernels import lasso_cd
-    from channel_pruning_tpu_torch.ops.forward import run_graph
-    from channel_pruning_tpu_torch.sampling.inputs import SyntheticInputs
+def _resnet50_structure(work: Path, res) -> tuple[list[str], str]:
+    """(failures, summary) of the ResNet-50 2x structure checks on the
+    exported model: widths and Select gates in the released band."""
     from channel_pruning_tpu_torch.graph.ir import LT
     from channel_pruning_tpu_torch.io.caffe import import_model
+    from channel_pruning_tpu_torch.kernels import lasso_cd
     from channel_pruning_tpu_torch.models.resnet import (RESNET50_2X_BRANCH2A,
                                                          RESNET50_2X_BRANCH2B,
-                                                         RESNET50_2X_FILTERS,
-                                                         build_resnet50)
-    from channel_pruning_tpu_torch.utils.flops import total_flops
+                                                         RESNET50_2X_FILTERS)
 
-    work = WORK / "resnet50"
-    torch.cuda.reset_peak_memory_stats(device)
-    lasso_cd.LAUNCHES = lasso_cd.LAUNCHES_STREAM = 0
-    t0 = time.perf_counter()
-    res = _prune_resnet50(work)
-    wall = time.perf_counter() - t0
-    launches = {"k1": lasso_cd.LAUNCHES, "k2": lasso_cd.LAUNCHES_STREAM}
-    peak = torch.cuda.max_memory_allocated(device)
-
-    print("[resnet50] layer            kind  keep       rMSE before -> after   replay s  solve s")
-    for r in res.reports:
-        print(f"[resnet50] {r.conv:<16s} {r.kind:<5s} {r.kept:>4d}/{r.total:<4d} "
-              f"{r.rmse_before:.4f} -> {r.rmse_after:.4f}      "
-              f"{r.replay_seconds:7.3f}  {r.solve_seconds:7.3f}")
     failures = []
     if len(res.reports) != 40:
         failures.append(f"{len(res.reports)} layers solved, want 40")
@@ -490,12 +495,9 @@ def phase_resnet50(device) -> tuple[dict[str, int], float]:
     if bad:
         failures.append(f"rMSE not finite in {bad}")
     wide = sorted(r.conv for r in res.reports if r.total > lasso_cd.MAX_C)
-    if wide != ["res5b_branch2a", "res5c_branch2a"] or launches["k2"] <= 0:
-        failures.append(f"K2 launches {launches['k2']} for layers {wide}")
-    if launches["k1"] <= 0:
-        failures.append("K1 never launched")
-
-    g, p = import_model(work / "cp_resnet50.prototxt", work / "cp_resnet50.caffemodel")
+    if wide != ["res5b_branch2a", "res5c_branch2a"]:
+        failures.append(f"layers wider than K1's limit: {wide}")
+    g, _ = import_model(work / "cp_resnet50.prototxt", work / "cp_resnet50.caffemodel")
     widths = {l.name: int(l.attr("num_output")) for l in g.by_type(LT.CONV)}
     branches = {**RESNET50_2X_BRANCH2A, **RESNET50_2X_BRANCH2B}
     out_band = {n: (t, widths.get(n)) for n, t in branches.items()
@@ -510,7 +512,44 @@ def phase_resnet50(device) -> tuple[dict[str, int], float]:
     gates_exact = sum(gates.get(n) == t for n, t in RESNET50_2X_FILTERS.items())
     if len(gates) != 16 or gates_out:
         failures.append(f"{len(gates)} Select gates; outside the band: {gates_out}")
+    summary = (f"branch widths in the released band {len(branches) - len(out_band)}"
+               f"/{len(branches)} ({exact} exact); Select gates {len(gates)}, in "
+               f"band {len(RESNET50_2X_FILTERS) - len(gates_out)}/16 "
+               f"({gates_exact} exact)")
+    return failures, summary
 
+
+def phase_resnet50(device):
+    """The ResNet-50 2x main path through the CLI with its defaults."""
+    import torch
+
+    from channel_pruning_tpu_torch.convert import params_to_torch
+    from channel_pruning_tpu_torch.kernels import lasso_cd
+    from channel_pruning_tpu_torch.ops.forward import run_graph
+    from channel_pruning_tpu_torch.sampling.inputs import SyntheticInputs
+    from channel_pruning_tpu_torch.io.caffe import import_model
+    from channel_pruning_tpu_torch.models.resnet import build_resnet50
+    from channel_pruning_tpu_torch.utils.flops import total_flops
+
+    work = WORK / "resnet50"
+    torch.cuda.reset_peak_memory_stats(device)
+    lasso_cd.LAUNCHES = lasso_cd.LAUNCHES_STREAM = 0
+    t0 = time.perf_counter()
+    res = _prune_resnet50(work)
+    wall = time.perf_counter() - t0
+    launches = {"k1": lasso_cd.LAUNCHES, "k2": lasso_cd.LAUNCHES_STREAM}
+    peak = torch.cuda.max_memory_allocated(device)
+
+    _check_pipelined("resnet50", res)
+    print("[resnet50] layer            kind  keep       rMSE before -> after   grids  dispatch-to-drain s")
+    for r in res.reports:
+        print(f"[resnet50] {r.conv:<16s} {r.kind:<5s} {r.kept:>4d}/{r.total:<4d} "
+              f"{r.rmse_before:.4f} -> {r.rmse_after:.4f}      {r.grids:5d}  "
+              f"{r.seconds:7.3f}")
+    failures, summary = _resnet50_structure(work, res)
+    if launches["k1"] <= 0 or launches["k2"] <= 0:
+        failures.append(f"K1 launches {launches['k1']}, K2 {launches['k2']}")
+    g, p = import_model(work / "cp_resnet50.prototxt", work / "cp_resnet50.caffemodel")
     x = SyntheticInputs(1, g.inputs[0].shape[0], tuple(g.inputs[0].shape[1:])).batch(0)
     outs, _ = run_graph(g, params_to_torch(p, device), {"data": x.to(device)})
     prob = outs["prob"]
@@ -520,19 +559,55 @@ def phase_resnet50(device) -> tuple[dict[str, int], float]:
         failures.append("exported model does not give probabilities")
     orig = total_flops(build_resnet50(), include_fc=False)
     new = total_flops(g, include_fc=False)
-    print(f"[resnet50] branch widths in the released band {len(branches) - len(out_band)}"
-          f"/{len(branches)} ({exact} exact); Select gates {len(gates)}, in band "
-          f"{len(RESNET50_2X_FILTERS) - len(gates_out)}/16 ({gates_exact} exact)")
+    print(f"[resnet50] {summary}")
     print("[resnet50] wall " + " ".join(f"{k} {v:.2f}s" for k, v in res.wall.items())
-          + f"; total {wall:.2f}s; replay {sum(r.replay_seconds for r in res.reports):.2f}s"
-          f" solve {sum(r.solve_seconds for r in res.reports):.2f}s over the layers; "
-          f"conv mults {orig:,} -> {new:,} ({orig / new:.2f}x); kernel launches "
-          f"K1 {launches['k1']} K2 {launches['k2']}; peak device memory "
-          f"{peak / 2**30:.2f} GiB", flush=True)
+          + f"; total {wall:.2f}s; conv mults {orig:,} -> {new:,} "
+          f"({orig / new:.2f}x); kernel launches K1 {launches['k1']} K2 "
+          f"{launches['k2']}; peak device memory {peak / 2**30:.2f} GiB",
+          flush=True)
     if failures:
         raise AssertionError("ResNet-50 2x: " + "; ".join(failures))
     print("[resnet50] exported model reloads, probabilities sum to 1", flush=True)
-    return launches, wall
+    return launches, wall, res
+
+
+def phase_sequential(label: str, prune, piped, check) -> None:
+    """A main path once more on the sequential path (host-stepped search,
+    float64 grid endpoints): `check` holds its structure; how many layers
+    select as the pipelined pass did, and the lowest IoU, are printed."""
+    work = WORK / f"{label}_sequential"
+    t0 = time.perf_counter()
+    res = prune(work, "--set", "solve.fused_search=False")
+    wall = time.perf_counter() - t0
+    if res.pipelined:
+        raise AssertionError(f"{label}: the sequential run took the pipelined pass")
+    check(work, res)
+    same, ious = 0, []
+    for name, keep in piped.selections.items():
+        other = res.selections[name]
+        same += bool(np.array_equal(keep, other))
+        ious.append((keep & other).sum() / max((keep | other).sum(), 1))
+    worst = int(np.argmin(ious))
+    print(f"[{label}] sequential pass: wall {wall:.2f}s (solve "
+          f"{res.wall['solve']:.2f}s); {same}/{len(ious)} layers select as the "
+          f"pipelined pass, lowest IoU {ious[worst]:.3f} "
+          f"({list(piped.selections)[worst]})", flush=True)
+
+
+def _check_vgg_counts(work: Path, res) -> None:
+    from channel_pruning_tpu_torch.models.vgg import VGG16_5X_CHANNELS
+
+    pruned = {p: t for p, t in VGG16_5X_CHANNELS.items() if t < 512}
+    got = {p: int(res.params[p]["W"].shape[0]) for p in pruned}
+    if got != pruned:
+        raise AssertionError(f"keep counts {got} != released table {pruned}")
+
+
+def _check_resnet_bands(work: Path, res) -> None:
+    failures, summary = _resnet50_structure(work, res)
+    if failures:
+        raise AssertionError("ResNet-50 2x sequential: " + "; ".join(failures))
+    print(f"[resnet50] sequential: {summary}")
 
 
 def main() -> int:
@@ -542,7 +617,7 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description="smoke run of the port on one card")
     parser.add_argument("--profile", action="store_true",
-                        help="also run the main path under torch.profiler and "
+                        help="also run the main paths under torch.profiler and "
                              "print device busy time, idle share and top kernels")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -551,6 +626,7 @@ def main() -> int:
         return 2
     from channel_pruning_tpu_torch.device import resolve_device
     from channel_pruning_tpu_torch.kernels import lasso_cd
+    from channel_pruning_tpu_torch.pipeline import c3
 
     card = _card_line()
     print(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}",
@@ -567,10 +643,14 @@ def main() -> int:
 
     stats = phase_kernel_vs_plain(device)
     stream = phase_stream_vs_plain(device)
+    # every pipelined dispatch from here on runs under the sync check
+    c3.CHECK_DISPATCH_SYNC = True
     phase_tiny_vgg(device)
     phase_tiny_resnet(device)
-    vgg, wall = phase_main_path(device)
-    r50, r50_wall = phase_resnet50(device)
+    vgg, wall, vgg_res = phase_main_path(device)
+    r50, r50_wall, r50_res = phase_resnet50(device)
+    phase_sequential("main", _prune_vgg16, vgg_res, _check_vgg_counts)
+    phase_sequential("resnet50", _prune_resnet50, r50_res, _check_resnet_bands)
     if args.profile:
         phase_profile("vgg16", _prune_vgg16, wall)
         phase_profile("resnet50", _prune_resnet50, r50_wall)

@@ -114,17 +114,35 @@ def test_stream_kernel_equals_k1(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [512, 1024, 2048])
-def test_new_kernels_equal_v1(card, c):
-    """The dispatched kernel (K1 up to c = 1024, K2 above) against the
-    previous design of the same kernel over the full 200 sweeps: equal bit
-    for bit."""
-    gram, alphas = _gate_problem(c, c, card)
-    got = lasso_cd.cd_solve_grid(gram.G, gram.b, alphas)
-    v1 = lasso_cd.cd_solve_grid_v1(gram.G, gram.b, alphas,
-                                   stream=c > lasso_cd.MAX_C)
+@pytest.mark.parametrize("c", [512, 2048])
+def test_inf_alphas_cost_one_empty_sweep(card, c):
+    """The fused search's rounds after it is done pass alphas of +inf: K1
+    (c = 512) and K2 (c = 2048) leave every beta at exactly 0 and stop each
+    alpha after one sweep with no nonzero step."""
+    gram, _ = _gate_problem(c, c, card)
+    alphas = torch.full((16,), float("inf"), device=card)
+    stats = torch.zeros((16, 2), dtype=torch.int32, device=card)
+    before = (lasso_cd.LAUNCHES, lasso_cd.LAUNCHES_STREAM)
+    got = lasso_cd.cd_solve_grid(gram.G, gram.b, alphas, stats=stats)
     torch.cuda.synchronize()
-    np.testing.assert_array_equal(got.cpu().numpy(), v1.cpu().numpy())
+    k2 = c > lasso_cd.MAX_C
+    assert (lasso_cd.LAUNCHES, lasso_cd.LAUNCHES_STREAM) == \
+        (before[0] + (not k2), before[1] + k2)
+    assert torch.equal(got, torch.zeros_like(got))
+    assert stats[:, 0].tolist() == [1] * 16 and stats[:, 1].tolist() == [0] * 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefer", ["top", "bottom"])
+def test_fused_search_on_card_matches_cpu(card, prefer):
+    """The fused search on the card (K1, device-side state) and on the CPU
+    (the plain version) on one Gram: the same mask, support and alpha."""
+    gram, _ = _gate_problem(5, 256, card)
+    cpu = lasso.LassoGram(gram.G.cpu(), gram.b.cpu(), gram.n_samples)
+    got = lasso.fused_search_alpha(gram, 96, 0.1, prefer=prefer)
+    want = lasso.fused_search_alpha(cpu, 96, 0.1, prefer=prefer)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:]
 
 
 @pytest.mark.cuda

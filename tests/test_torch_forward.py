@@ -119,6 +119,33 @@ def test_point_gathers_bit_equal(kernel, stride, pad, size):
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("kernel,stride,pad,size", [((3, 3), (1, 1), (1, 1), 9),
+                                                    ((1, 1), (2, 2), (0, 0), 10),
+                                                    ((7, 7), (2, 2), (3, 3), 15)])
+def test_grouped_gathers_equal_per_chunk_gathers(kernel, stride, pad, size):
+    """The grouped gathers (one indexing op for all chunks) give the
+    per-chunk point gathers' values and rows, g*P*B + p*B + b, bit for bit;
+    those are held to the JAX package's above."""
+    rng = np.random.default_rng(5)
+    G, B, P = 3, 2, 4
+    v = torch.from_numpy(rng.normal(size=(G * B, 5, size, size))
+                         .astype(np.float32))
+    out_size = (size + 2 * pad[0] - kernel[0]) // stride[0] + 1
+    ys = torch.from_numpy(rng.integers(0, out_size, (G, P)))
+    xs = torch.from_numpy(rng.integers(0, out_size, (G, P)))
+    got = patches.gather_patches_grouped(v, ys, xs, kernel, stride, pad)
+    want = torch.cat([patches.gather_patches_at_points(
+        v[g * B:(g + 1) * B], ys[g], xs[g], kernel, stride, pad)
+        for g in range(G)])
+    assert torch.equal(got, want)
+    yc = torch.from_numpy(rng.integers(0, size, (G, P)))
+    xc = torch.from_numpy(rng.integers(0, size, (G, P)))
+    got = patches.gather_channels_grouped(v, yc, xc)
+    want = torch.cat([patches.gather_channels_at_points(
+        v[g * B:(g + 1) * B], yc[g], xc[g]) for g in range(G)])
+    assert torch.equal(got, want)
+
+
 def test_params_round_trip():
     _, params = vgg.build_tiny_vgg()
     back = params_to_numpy(params_to_torch(params, "cpu"))

@@ -66,3 +66,15 @@ def test_rank_deficient_design_stays_factorisable():
     pred = X @ W.numpy().T + b.numpy()
     predj = X @ np.asarray(Wj).T + np.asarray(bj)
     np.testing.assert_allclose(pred, predj, rtol=1e-4, atol=1e-5)
+
+
+def test_failed_factorisation_gives_nan_as_jax():
+    """A design the (negative) ridge leaves indefinite: neither package
+    raises; both return NaN weights, which the caller sees as a non-finite
+    rMSE. The port reads nothing on the host to get there."""
+    X, Y = _problem(7, 200, 10, 3)
+    W, b = lstsq.fit_linear(torch.from_numpy(X), torch.from_numpy(Y),
+                            ridge=-1e6)
+    Wj, _ = jax_lstsq.fit_linear(X, Y, ridge=-1e6)
+    assert np.isnan(np.asarray(Wj)).all()
+    assert torch.isnan(W).all() and torch.isnan(b).all()

@@ -1,8 +1,10 @@
 """The port's whole slice on the tiny VGG against the JAX package: freeze,
-the sequential host-stepped solve (`solve.fused_search=False` on both
-sides), the per-layer selections, a JAX-frozen cache solved by the port,
-and the port's CLI in a process where neither jax nor the JAX package can
-be imported. Each package solves a graph built by its own builders from the
+the sequential host-stepped solve (`solve.fused_search=False` set on both
+sides: the default is the pipelined pass, held in
+tests/test_torch_fused_pipeline.py), the per-layer selections, a
+JAX-frozen cache solved by the port, and the port's CLI (its default, the
+pipelined pass) in a process where neither jax nor the JAX package can be
+imported. Each package solves a graph built by its own builders from the
 same seed."""
 import os
 import subprocess
@@ -197,12 +199,17 @@ def test_cache_refuses_jax_synthetic_spec(tmp_path):
 
 
 def test_unported_options_raise(setup):
+    """bf16 replays stay refused until a parity run on the card; the fused
+    search is ported and runs."""
     (g, _), params, cfg, _, cache = setup
-    for key, val in (("solve.fused_search", "True"),
-                     ("solve.dtype", "bfloat16")):
-        with pytest.raises(NotImplementedError):
-            c3.solve_prune(g, params, cache, cfg.replace_nested(key, val),
-                           channel_targets=TARGETS, device="cpu")
+    with pytest.raises(NotImplementedError, match="solve.dtype"):
+        c3.solve_prune(g, params, cache,
+                       cfg.replace_nested("solve.dtype", "bfloat16"),
+                       channel_targets=TARGETS, device="cpu")
+    res = c3.solve_prune(g, params, cache,
+                         cfg.replace_nested("solve.fused_search", "True"),
+                         channel_targets=TARGETS, device="cpu", verbose=False)
+    assert res.pipelined and len(res.selections) == len(TARGETS)
 
 
 def _cli_prune_without_jax(tmp_path, model: str, image_size: int,
@@ -228,6 +235,7 @@ def _cli_prune_without_jax(tmp_path, model: str, image_size: int,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "conv mults" in out.stdout
+    assert "s pipelined)" in out.stdout and "[pipeline]" not in out.stdout
     g, params = cio.import_model(tmp_path / f"cp_{model}.prototxt",
                                  tmp_path / f"cp_{model}.caffemodel")
     sel = np.load(tmp_path / f"cp_{model}_selections.npz")

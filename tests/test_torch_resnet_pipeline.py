@@ -1,7 +1,8 @@
 """The port's ResNet path against the JAX package: the DAG frontier, Select
 gates in front of each block's branch2a (`input_targets`), and residual
 compensation, in the sequential host-stepped solve
-(`solve.fused_search=False` on both sides; the port's CD is its plain
+(`solve.fused_search=False` set on both sides; the pipelined default is
+held in tests/test_torch_fused_pipeline.py; the port's CD is its plain
 version on the CPU). Targets as in tests/test_resnet_pipeline.py:56-69.
 Each package solves a graph built by its own builders from the same seed."""
 import numpy as np
