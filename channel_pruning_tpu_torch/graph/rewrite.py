@@ -357,7 +357,10 @@ def combine_hp(graph: Graph, params: Mapping[str, Mapping[str, np.ndarray]]
             newb = Pb + P2 @ Hb
             params[h]["W"] = neww
             params[h]["b"] = newb
-            g, params = set_conv(g, params, h, num_output=o)
+            # bias on: an ITQ H conv is biasless, and the merged conv carries
+            # P's bias (the JAX package's copy leaves the flag off, so the
+            # forward drops the bias)
+            g, params = set_conv(g, params, h, num_output=o, bias=True)
             g = remove_layer(g, p)
             params.pop(p, None)
     g.validate()

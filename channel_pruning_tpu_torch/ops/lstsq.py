@@ -4,7 +4,9 @@ Centred normal equations, a 1e-6·trace jitter so rank-deficient designs
 stay Cholesky-factorisable in f32, and a Cholesky solve. Plain torch
 matmuls: the JAX package left this work to XLA outside any kernel. The
 intercept path reads nothing on the host, so the pipelined pass can queue
-it behind the layer before.
+it behind the layer before. `factor` once and `solve` many times is the
+refit the ReLU-aware ALS loops of ops/lowrank.py run against one design;
+`solve_relu` is their closed-form inner step.
 """
 from __future__ import annotations
 
@@ -65,3 +67,18 @@ def fit_linear(X: torch.Tensor, Y: torch.Tensor, ridge: float = 0.0,
         n_out = Y.shape[1] if Y.ndim > 1 else 1
         return W, torch.zeros(n_out, dtype=X.dtype, device=X.device)
     return solve(factor(X, ridge=ridge), X, Y)
+
+
+def solve_relu(RU: torch.Tensor, Z: torch.Tensor,
+               lam: float | torch.Tensor) -> torch.Tensor:
+    """Closed-form per-element minimiser of |relu(u)-z|^2 + λ|u-ru|^2 (the
+    ReLU-aware ALS inner step), with the JAX package's tie rule: cost0 <=
+    cost1 takes u0. λ goes to the device as an f32 tensor: on CUDA a
+    division by a Python scalar is a multiply by its reciprocal, which
+    rounds otherwise than the reference's division."""
+    lam = torch.as_tensor(lam, dtype=RU.dtype, device=RU.device)
+    u0 = torch.clamp(RU, max=0.0)
+    cost0 = Z ** 2 + lam * (u0 - RU) ** 2
+    u1 = torch.clamp((lam * RU + Z) / (lam + 1.0), min=0.0)
+    cost1 = (u1 - Z) ** 2 + lam * (u1 - RU) ** 2
+    return torch.where(cost0 <= cost1, u0, u1)

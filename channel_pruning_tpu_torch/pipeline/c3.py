@@ -1,4 +1,4 @@
-"""Whole-model channel pruning (port of the pruning arm of
+"""Whole-model channel pruning and 3C (port of
 channel_pruning_tpu/pipeline/c3.py).
 
 Two graphs, as in the reference: `g_run`, the running graph, keeps the
@@ -13,7 +13,9 @@ frontier and on residual graphs with the DAG frontier, Select gates
 (`input_targets`) and residual compensation; its default is the pipelined
 pass (`_pipelined_conv_pass`, with the fused search), and the sequential
 per-layer loop serves `solve.fused_search=False` and the restart after a
-degenerate layer. Not yet: fitfc and the 3C solver.
+degenerate layer. `solve_3c` runs the 3C pass (spatial VH, ReLU-aware ITQ
+and the pruning arm) and, with `dic.vh=False`, the 2C pass. Not yet:
+fitfc.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from channel_pruning_tpu_torch.graph import rewrite
 from channel_pruning_tpu_torch.graph.ir import Graph, LT
 from channel_pruning_tpu_torch.utils.config import Config
 from channel_pruning_tpu_torch.convert import params_to_torch
+from channel_pruning_tpu_torch.ops import lowrank
 from channel_pruning_tpu_torch.pipeline import prune as prune_mod
 from channel_pruning_tpu_torch.sampling import rolling as rolling_mod
 from channel_pruning_tpu_torch.sampling import sampler as sampling
@@ -64,8 +67,12 @@ class LayerReport:
     seconds: float = 0.0
     replay_seconds: float = 0.0
     solve_seconds: float = 0.0
-    kind: str = "prune"       # "gate": a Select gate in front of the consumer
-    grids: int | None = None  # CD grids the fused search solved (pipelined)
+    kind: str = "prune"       # "gate": a Select gate in front of the consumer;
+    #                           "3c": a decomposed layer (rMSE VH-only -> final)
+    grids: int | None = None  # CD grids the fused search solved
+    # a 3C layer's host seconds: spatial and channel stages, and inside them
+    # the replay, the host SVDs, the ITQ loop and the checkpoint's wait
+    phases: dict[str, float] = field(default_factory=dict)
 
 
 @dataclass
@@ -81,6 +88,12 @@ class SolveResult:
     wall: dict[str, float] = field(default_factory=dict)
     # the pipelined pass ran to its end (False: sequential, or restarted)
     pipelined: bool = False
+    # 3C layers where ITQ was rejected and the layer stayed at VH-only
+    itq_degraded: list[str] = field(default_factory=list)
+    # 3C layers kept completely untouched (spatial stage rejected too)
+    undecomposed: list[str] = field(default_factory=list)
+    # seconds of each background checkpoint write of this run (3C)
+    checkpoint_writes: list[float] = field(default_factory=list)
 
     def summary(self) -> str:
         lines = []
@@ -93,6 +106,13 @@ class SolveResult:
         if self.frontier_fallbacks:
             lines.append(f"frontier fallbacks ({len(self.frontier_fallbacks)}):"
                          f" {', '.join(self.frontier_fallbacks)}")
+        if self.itq_degraded:
+            lines.append(f"ITQ degraded to VH-only "
+                         f"({len(self.itq_degraded)}): "
+                         f"{', '.join(self.itq_degraded)}")
+        if self.undecomposed:
+            lines.append(f"kept undecomposed ({len(self.undecomposed)}): "
+                         f"{', '.join(self.undecomposed)}")
         return "\n".join(lines)
 
 
@@ -198,6 +218,24 @@ def _maybe_rolling(g_run: Graph, cache: sampling.FrozenCache, device,
         return None
     return rolling_mod.RollingReplayDAG(g_run, cache.inputs, device=device,
                                         plan=cache.plan)
+
+
+def _patches(roll, g_run: Graph, dev_run, cache: sampling.FrozenCache,
+             conv: str, device, chunk: int, fallbacks: list[str]
+             ) -> torch.Tensor:
+    """`conv`'s input patches at its planned points: from the rolling
+    frontier, or from a full replay where the frontier cannot serve them
+    (the conv is then recorded in `fallbacks`)."""
+    if roll is not None:
+        try:
+            roll.advance_to(dev_run, g_run.layer(conv).bottoms[0])
+            return roll.patches_at(cache.plan, conv)
+        except rolling_mod.FrontierError as exc:
+            print(f"[rolling] fallback for {conv}: {exc}")
+            fallbacks.append(conv)
+    return sampling.sample_patches(g_run, dev_run, cache.inputs, conv,
+                                   cache.plan, device=device,
+                                   chunk_batches=chunk)
 
 
 def _residual_context(g_run: Graph, consumer_top: str):
@@ -540,18 +578,8 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
             g_run, p_run, channel_targets, input_targets, resume_i):
         n_in = p_run[consumer]["W"].shape[1]
         t0 = time.perf_counter()
-        X = None
-        if roll is not None:
-            try:
-                roll.advance_to(dev_run, bottom)
-                X = roll.patches_at(cache.plan, consumer)
-            except rolling_mod.FrontierError as exc:
-                print(f"[rolling] fallback for {consumer}: {exc}")
-                frontier_fallbacks.append(consumer)
-        if X is None:
-            X = sampling.sample_patches(g_run, dev_run, cache.inputs, consumer,
-                                        cache.plan, device=device,
-                                        chunk_batches=chunk)
+        X = _patches(roll, g_run, dev_run, cache, consumer, device, chunk,
+                     frontier_fallbacks)
         top = g_run.layer(consumer).tops[0]
         b2 = torch.as_tensor(np.asarray(p_run[consumer].get(
             "b", np.zeros(p_run[consumer]["W"].shape[0], np.float32)),
@@ -623,3 +651,310 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
     return SolveResult(graph=g_out, params=p_out, reports=reports,
                        selections=selections,
                        frontier_fallbacks=frontier_fallbacks)
+
+
+# ---------------------------------------------------------------------------
+# 3C solve: spatial (VH) + channel (ITQ) decomposition + pruning
+# ---------------------------------------------------------------------------
+
+def _absmax_finite(x) -> tuple[torch.Tensor, torch.Tensor]:
+    """max|x| and its finiteness as 0-d tensors where x lives (NaN and Inf
+    propagate through the max)."""
+    ax = torch.as_tensor(x).float().abs().max()
+    return ax, torch.isfinite(ax)
+
+
+def _epscheck(*arrays, warn: float = 1e2, reject: float = 1e4) -> bool:
+    """Numeric guard on decomposition factors and inputs (reference
+    epscheck, lib/decompose.py:158-161: warns at 1e2/1e4). False when one
+    is non-finite or beyond `reject`: the caller reverts the layer. The
+    reduction runs where each array lives, so a device tensor sends two
+    scalars to the host (the JAX package's `_epscheck_device`), not itself."""
+    worst = 0.0
+    for a in arrays:
+        ax, fin = _absmax_finite(a)
+        if not bool(fin):
+            return False
+        worst = max(worst, float(ax))
+    if worst > reject:
+        return False
+    if worst > warn:
+        print(f"[epscheck] factor magnitude {worst:.1e} exceeds {warn:.0e}")
+    return True
+
+
+def _relu_rel_error(gt: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    """rel_error(relu(gt), relu(pred)) as a 0-d tensor on the device."""
+    g = torch.clamp(gt.float(), min=0.0)
+    p = torch.clamp(pred.float(), min=0.0)
+    return torch.sqrt(torch.mean((g - p) ** 2)) / \
+        torch.sqrt(torch.mean(g ** 2) + 1e-30)
+
+
+def ranks_for_speed(base_ranks: Mapping[str, int], speed_ratio: float,
+                    no_rescale_prefix: str = "conv5") -> dict[str, int]:
+    """Scale the 4x rank table by 4/speed_ratio, conv5 exempt
+    (reference net.py:1323-1326)."""
+    return {k: int(v) if k.startswith(no_rescale_prefix)
+            else max(1, int(round(v * 4.0 / speed_ratio)))
+            for k, v in base_ranks.items()}
+
+
+def solve_3c(graph: Graph, params: Mapping[str, Mapping[str, np.ndarray]],
+             cache: sampling.FrozenCache, cfg: Config,
+             ranks: Mapping[str, int], skip: tuple[str, ...] = ("conv1_1",),
+             *, device, checkpoint=None, verbose: bool = True) -> SolveResult:
+    """The whole-model 3C pass (reference R3, lib/net.py:1292-1471).
+
+    Per conv, in order, skipping `skip` and convs without a rank:
+      (a) spatial: the data-driven VH SVD at rank r; the running conv's
+          weights become the rank-limited VHr and the refit bias;
+      (b) channel: ReLU-aware ITQ at rank r on the VH responses against the
+          frozen ground truth; the running weights become the merged W12 and
+          bias B (the layer stays VH-only when ITQ is rejected);
+      (c) pruning (with `dic.vh`): LASSO-select the NEXT conv's inputs down
+          to floor(C_out / dic.c_ratio) with `prune.select_and_reconstruct`
+          (the fused search with `solve.fused_search`), least-squares
+          reconstruct, zero-scatter into the running graph.
+    The output graph replaces each conv with V (kh x 1) -> H (1 x kw, rank)
+    -> P (1x1) and physically drops pruned channels (P's rows, or H's for a
+    VH-only layer, and the consumer's input slices).
+
+    Only conv parameters go to the device; the FC stack stays on the host.
+    `checkpoint` (a pipeline.checkpoint.SolveCheckpoint) snapshots the state
+    after every layer it is due on and resumes from it; an exception joins
+    the write in flight before it propagates."""
+    try:
+        return _solve_3c(graph, params, cache, cfg, ranks, skip, device,
+                         checkpoint, verbose)
+    except BaseException:
+        if checkpoint is not None:
+            checkpoint.wait()
+        raise
+
+
+def _solve_3c(graph, params, cache, cfg, ranks, skip, device, checkpoint,
+              verbose) -> SolveResult:
+    check_supported(graph, cfg)
+    device = torch.device(device)
+    g_run = graph
+    p_run = {k: dict(v) for k, v in params.items()}
+    g_out = graph
+    p_out = {k: dict(v) for k, v in params.items()}
+    reports: list[LayerReport] = []
+    selections: dict[str, np.ndarray] = {}
+    frontier_fallbacks: list[str] = []
+    itq_degraded: list[str] = []
+    undecomposed: list[str] = []
+    # input-keep masks recorded by the pruning arm, consumed when the conv is
+    # itself decomposed (V's input channels sliced)
+    input_keep: dict[str, np.ndarray] = {}
+    resume_i = -1
+    if checkpoint is not None:
+        snap = checkpoint.load()
+        if snap is not None:
+            resume_i, st = snap
+            p_run, g_out, p_out = st["p_run"], st["g_out"], st["p_out"]
+            selections = st["selections"]
+            input_keep = st["input_keep"]
+            reports = st["reports"]
+            frontier_fallbacks = st.get("frontier_fallbacks", [])
+            itq_degraded = st.get("itq_degraded", [])
+            undecomposed = st.get("undecomposed", [])
+            print(f"[resume] solve_3c continuing after layer {resume_i}")
+
+    convs = list(g_run.convs)
+    chunk = sampling.clamp_chunk_for_hbm(
+        g_run, cache.batch_size,
+        max(cfg.sample.device_batch // cache.batch_size, 1))
+    # the replays never run the FC stack, so its weights stay on the host
+    fcs = set(g_run.fcs)
+    dev_run = params_to_torch({k: v for k, v in p_run.items() if k not in fcs},
+                              device)
+    feats_dev: dict[str, torch.Tensor] = {}   # ground truth, uploaded once
+    roll = _maybe_rolling(g_run, cache, device)
+
+    def patches(conv: str) -> torch.Tensor:
+        return _patches(roll, g_run, dev_run, cache, conv, device, chunk,
+                        frontier_fallbacks)
+
+    def overwrite(conv: str, W: torch.Tensor, b: torch.Tensor) -> None:
+        """The running conv's new weights: on the device as computed, and
+        their host copy for the checkpoint and the next stage."""
+        dev_run[conv] = {"W": W.contiguous(), "b": b.contiguous()}
+        p_run[conv] = {"W": W.cpu().numpy(), "b": b.cpu().numpy()}
+
+    for i, conv in enumerate(convs):
+        if i <= resume_i or conv in skip or conv not in ranks:
+            continue
+        rank = int(ranks[conv])
+        l_run = g_run.layer(conv)
+        geo = l_run.conv_geometry()
+        W_cur = np.asarray(p_run[conv]["W"], np.float32)
+        n_out, c_full, kh, kw = W_cur.shape
+        Ygt = _ground_truth(feats_dev, cache, l_run.tops[0], device)
+        phases: dict[str, float] = {}
+        t0 = time.perf_counter()
+
+        # ---- (a) spatial decomposition --------------------------------
+        X = patches(conv)
+        ok_in = _epscheck(X, warn=1e5, reject=1e6)
+        phases["replay"] = time.perf_counter() - t0
+        vh = None
+        if not ok_in:
+            # extreme accumulated activations: keep the layer untouched
+            print(f"[3c] {conv}: inputs rejected by epscheck — layer kept")
+        else:
+            try:
+                vh = lowrank.vh_decompose(W_cur, rank, X=X, Y=Ygt,
+                                          lambdas=cfg.solve.nonlinear_lambdas,
+                                          iters=cfg.solve.nonlinear_iters)
+            except np.linalg.LinAlgError as exc:
+                print(f"[3c] {conv}: spatial decomposition failed ({exc}) — "
+                      "layer kept undecomposed")
+            else:
+                phases["svd_host"] = vh.svd_seconds
+                if not _epscheck(vh.VHr, vh.b, vh.V, vh.H):
+                    print(f"[3c] {conv}: spatial factors rejected by epscheck "
+                          "— layer kept undecomposed")
+                    vh = None
+        if vh is None:
+            undecomposed.append(conv)
+            reports.append(LayerReport(conv=conv, rank=rank, kind="3c",
+                                       seconds=time.perf_counter() - t0))
+            continue
+        overwrite(conv, vh.VHr, vh.b)
+        phases["spatial"] = time.perf_counter() - t0
+
+        # ---- (b) channel decomposition (ITQ) --------------------------
+        # the post-VH responses at the sampled points are the extracted
+        # patches convolved with VHr, which the refit already produced
+        # (the reference re-runs a 500-batch extraction, net.py:1386)
+        t1 = time.perf_counter()
+        itq = None
+        if _epscheck(vh.feat, warn=1e5, reject=1e6):
+            try:
+                itq = lowrank.itq_decompose(vh.feat, Ygt, vh.H, rank,
+                                            bias=vh.b, Wr=vh.VHr,
+                                            lambdas=cfg.solve.itq_lambdas,
+                                            iters=cfg.solve.itq_iters)
+            except np.linalg.LinAlgError as exc:
+                print(f"[3c] {conv}: ITQ solve failed ({exc})")
+            else:
+                phases["itq_loop"] = itq.loop_seconds
+                phases["itq_svd_host"] = itq.svd_seconds
+                if not _epscheck(itq.W1, itq.W2, itq.B, itq.W12):
+                    itq = None
+        if itq is not None:
+            overwrite(conv, itq.W12, itq.B)
+        else:
+            print(f"[3c] {conv}: ITQ factors rejected by epscheck — "
+                  "layer kept at spatial (VH) decomposition only")
+            itq_degraded.append(conv)
+        # decomposition telemetry: relative error of the ReLU'd responses,
+        # VH-only against final (VH+ITQ when it held)
+        rmse_vh = float(_relu_rel_error(Ygt, vh.feat))
+        rmse_final = rmse_vh if itq is None else \
+            float(_relu_rel_error(Ygt, itq.feat2))
+        phases["channel"] = time.perf_counter() - t1
+
+        # ---- output graph: conv -> V, then H (and P when ITQ held) ----
+        keep_in = input_keep.get(conv, np.ones(c_full, bool))
+        V = vh.V.cpu().numpy()[:, keep_in]          # (rank, c_kept, kh, 1)
+        if itq is not None:
+            Hw, Hb = itq.W1.cpu().numpy(), None     # (rank, rank, 1, kw)
+            Pw, Pb = itq.W2.cpu().numpy(), itq.B.cpu().numpy()
+        else:
+            Hw, Hb = vh.H.cpu().numpy(), vh.b.cpu().numpy()
+        g_out, p_out = rewrite.set_conv(
+            g_out, p_out, conv, W=V, b=None, bias=False,
+            num_output=rank, kernel_h=kh, kernel_w=1,
+            stride_h=geo["sh"], stride_w=1, pad_h=geo["ph"], pad_w=0,
+            new_name=f"{conv}_V")
+        p_out[f"{conv}_V"].pop("b", None)
+        g_out, p_out = rewrite.insert_conv_after(
+            g_out, p_out, f"{conv}_V", f"{conv}_H", Hw, Hb,
+            stride=(1, geo["sw"]), pad=(0, geo["pw"]))
+        if itq is not None:
+            g_out, p_out = rewrite.insert_conv_after(
+                g_out, p_out, f"{conv}_H", f"{conv}_P", Pw, Pb,
+                stride=1, pad=(0, 0))
+        report = LayerReport(conv=conv, rank=rank, rmse_before=rmse_vh,
+                             rmse_after=rmse_final, kind="3c", phases=phases,
+                             seconds=phases["spatial"] + phases["channel"])
+        reports.append(report)
+
+        # ---- (c) prune the next conv's inputs -------------------------
+        convnext = convs[i + 1] if i + 1 < len(convs) else None
+        if convnext is not None and cfg.dic.vh:
+            d_c = int(math.floor(n_out / cfg.dic.c_ratio))
+            t2 = time.perf_counter()
+            Xn = patches(convnext)
+            W_next = np.asarray(p_run[convnext]["W"], np.float32)
+            b_next = np.asarray(p_run[convnext].get(
+                "b", np.zeros(W_next.shape[0])), np.float32)
+            Yn = _ground_truth(feats_dev, cache, g_run.layer(convnext).tops[0],
+                               device) - torch.as_tensor(b_next, device=device)
+            res = prune_mod.select_and_reconstruct(
+                Xn, W_next, Yn, d_c, rank_tol=cfg.dic.rank_tol,
+                alpha0=cfg.solve.alpha, subsample=cfg.lasso.subsample_rows,
+                n_sweeps=cfg.lasso.n_sweeps, grid_size=cfg.lasso.grid_size,
+                max_rounds=cfg.lasso.max_rounds, ridge=cfg.solve.ls_ridge,
+                seed=cfg.sample.seed, group=cfg.dic.grplasso,
+                prefer=cfg.solve.band, fused=cfg.solve.fused_search)
+            t_prune = time.perf_counter() - t2
+            p_run[convnext] = {"W": _scatter_inputs(res.W, res.keep),
+                               "b": res.b}
+            dev_run[convnext] = params_to_torch({convnext: p_run[convnext]},
+                                                device)[convnext]
+            input_keep[convnext] = res.keep
+            selections[convnext] = res.keep
+            # output graph: slice the producer's rows (P, or H when the ITQ
+            # stage was rejected), install the consumer's weights
+            prod_key = f"{conv}_P" if itq is not None else f"{conv}_H"
+            p_out[prod_key] = {k: np.asarray(v)[res.keep]
+                               for k, v in p_out[prod_key].items()}
+            g_out, p_out = rewrite.set_conv(g_out, p_out, prod_key,
+                                            num_output=int(res.keep.sum()))
+            g_out, p_out = rewrite.prune_conv_inputs(
+                g_out, p_out, convnext, res.keep, W=res.W, b=res.b)
+            reports.append(LayerReport(
+                conv=convnext, kept=int(res.keep.sum()), total=int(n_out),
+                alpha=res.alpha, rmse_before=res.rmse_before,
+                rmse_after=res.rmse_after, seconds=t_prune, grids=res.grids))
+            if verbose:
+                print(f"[3c] {conv}: rank {rank}; prune {convnext} "
+                      f"{int(res.keep.sum())}/{n_out} rMSE "
+                      f"{res.rmse_before:.4f}->{res.rmse_after:.4f}", flush=True)
+        elif verbose:
+            print(f"[3c] {conv}: rank {rank}", flush=True)
+        if checkpoint is not None:
+            # the key goes in before the snapshot: the writer thread pickles
+            # this dict, and only the value changes under it
+            phases["checkpoint"] = 0.0
+            t3 = time.perf_counter()
+            checkpoint.maybe_save(i, {"p_run": p_run, "g_out": g_out,
+                                      "p_out": p_out,
+                                      "selections": selections,
+                                      "input_keep": input_keep,
+                                      "reports": reports,
+                                      "frontier_fallbacks": frontier_fallbacks,
+                                      "itq_degraded": itq_degraded,
+                                      "undecomposed": undecomposed})
+            phases["checkpoint"] = time.perf_counter() - t3
+
+    writes: list[float] = []
+    if checkpoint is not None:
+        checkpoint.clear()
+        writes = list(checkpoint.write_seconds)
+    g_out.validate()
+    n_3c = sum(1 for c in convs if c not in skip and c in ranks)
+    n_deg = len(itq_degraded) + len(undecomposed)
+    print(f"[3c] {n_3c - n_deg}/{n_3c} layers fully decomposed "
+          f"(VH+ITQ); {len(itq_degraded)} VH-only, "
+          f"{len(undecomposed)} untouched")
+    return SolveResult(graph=g_out, params=p_out, reports=reports,
+                       selections=selections,
+                       frontier_fallbacks=frontier_fallbacks,
+                       itq_degraded=itq_degraded, undecomposed=undecomposed,
+                       checkpoint_writes=writes)

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import pickle
 import threading
+import time
 from pathlib import Path
 from typing import Any
 
@@ -42,6 +43,8 @@ class SolveCheckpoint:
         self.path = Path(path) if path else None
         self.every = max(1, every)
         self._pending: threading.Thread | None = None
+        # seconds of each completed write, in order (read after `wait`)
+        self.write_seconds: list[float] = []
 
     def wait(self) -> None:
         """Block until the in-flight async write (if any) completes."""
@@ -72,11 +75,13 @@ class SolveCheckpoint:
         t.start()
 
     def _write(self, snap: dict[str, Any]) -> None:
+        t0 = time.perf_counter()
         tmp = self.path.with_suffix(".tmp")
         self.path.parent.mkdir(parents=True, exist_ok=True)
         with open(tmp, "wb") as f:
             pickle.dump(snap, f, protocol=4)
         tmp.replace(self.path)           # atomic: crash keeps the old snap
+        self.write_seconds.append(time.perf_counter() - t0)
 
     def clear(self) -> None:
         self.wait()

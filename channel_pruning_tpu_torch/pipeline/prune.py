@@ -110,6 +110,7 @@ class PruneResult:
     alpha: float              # LASSO alpha that hit the support band
     rmse_before: float        # rel rMSE of X*W2 vs Y before pruning
     rmse_after: float         # after selection + reconstruction
+    grids: int | None = None  # CD grids the fused search solved (fused only)
 
 
 def select_and_reconstruct(X: torch.Tensor, W2: np.ndarray, Y: torch.Tensor,
@@ -160,7 +161,7 @@ def select_and_reconstruct(X: torch.Tensor, W2: np.ndarray, Y: torch.Tensor,
                 keep=keep, W=out.Wfull.cpu().numpy()[:n_out, :c][:, keep],
                 b=out.b.cpu().numpy()[:n_out], alpha=float(out.alpha),
                 rmse_before=float(out.rmse_before),
-                rmse_after=float(out.rmse_after))
+                rmse_after=float(out.rmse_after), grids=int(out.grids))
     rmse_before = _rel_error(Xd, W2d, 0.0, Yd)
 
     if rank >= c:

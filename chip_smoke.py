@@ -24,6 +24,8 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
      DAG frontier, band=bottom) through the default pipelined pass on the
      card and on the CPU, and the sequential pass on the card: identical
      selections, and the pipelined pass runs to its end;
+  4b. the tiny VGG through 3C (VH, ITQ and the pruning arm, full schedules)
+     on the card and on the CPU: the same structure and selections;
   5. the main path, `cli prune --model vgg16 --mode prune --speed 5.0
      --device cuda` with its defaults (the pipelined pass with the fused
      search; 50 x 10 synthetic calibration images, random He-init weights):
@@ -43,14 +45,25 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
      both launched, every rMSE finite (on random weights after < before
      does not hold in the JAX package either), and the exported model
      reloads and gives probabilities;
-  5c. both main paths once more on the sequential path
+  5d. the 3C path, `cli prune --model vgg16 --mode 3c --speed 4.0 --device
+     cuda` from scratch with its defaults (the VGG-16 4x ranks, conv1_1
+     skipped, the pruning arms on the fused search), then `cli combine` and
+     `cli flop` on its export: 12/12 layers fully decomposed (VH+ITQ), each
+     of the 11 arms keeps a count in the search's band [d_c, d_c + rank_tol
+     d_c] above d_c = floor(C_out / dic.c_ratio), every rMSE finite, K1
+     launched on the arms, the export reloads and gives probabilities, and
+     the combined model gives the same probabilities on one batch (1e-4);
+     the per-layer table (rank, rMSE VH -> final, arm keep and rMSE, the
+     seconds of each stage with the host SVDs, the ITQ loop and the
+     checkpoint split out), the conv-mult ratios and the wall are printed;
+  5c. the two channel-pruning main paths once more on the sequential path
      (`--set solve.fused_search=False`): the same keep counts and bands;
      how many layers select as the pipelined pass and the lowest per-layer
      IoU are printed (float32 against float64 grid endpoints may move a
      near-tie probe on random weights);
-  6. with --profile only: each main path once more under torch.profiler,
-     with the device's busy time, idle share, the CD kernels' share and the
-     top kernels.
+  6. with --profile only: each main path (the 3C path too) once more under
+     torch.profiler, with the device's busy time, idle share, the CD
+     kernels' share and the top kernels.
 The next-to-last line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}. Nothing of JAX or of the JAX package is
 imported here, nor by the port: it has its own copies of the numpy modules
@@ -348,11 +361,53 @@ def phase_tiny_resnet(device) -> None:
     print(f"[tiny_resnet] {gates} Select gates", flush=True)
 
 
-def _prune(model: str, speed: str, work: Path, *extra: str):
+def phase_tiny_3c(device) -> None:
+    """The tiny VGG through 3C (every conv after the first decomposed at
+    the CLI's rank, the full ALS/ITQ schedules, the arms on the fused
+    search) on the card and on the CPU: the same structure and selections."""
+    import torch
+
+    from channel_pruning_tpu_torch.convert import params_to_torch
+    from channel_pruning_tpu_torch.graph.rewrite import split_relu
+    from channel_pruning_tpu_torch.models.vgg import build_tiny_vgg
+    from channel_pruning_tpu_torch.pipeline import c3
+    from channel_pruning_tpu_torch.sampling import sampler
+    from channel_pruning_tpu_torch.utils.config import default_config
+
+    g, params = build_tiny_vgg(batch=4, image_size=16)
+    g = split_relu(g)
+    inputs = np.random.default_rng(7).normal(0, 1, (8, 4, 3, 16, 16)).astype(np.float32)
+    ranks = {c: int(g.layer(c).attr("num_output")) for c in g.convs[1:]}
+    runs = {}
+    for name, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        cache = sampler.freeze(g, params_to_torch(params, dev), inputs,
+                               device=dev, n_points=10, seed=0, chunk_batches=4)
+        runs[name] = c3.solve_3c(g, params, cache, default_config(), ranks,
+                                 device=dev, verbose=False)
+    card, cpu = runs["card"], runs["cpu"]
+    shapes = [{l.name: r.params[l.name]["W"].shape for l in r.graph.layers
+               if l.type == "Convolution"} for r in (card, cpu)]
+    if shapes[0] != shapes[1]:
+        raise AssertionError(f"tiny 3C structure differs: {shapes}")
+    sel = (card.selections, cpu.selections)
+    if sel[0].keys() != sel[1].keys() or any(
+            not np.array_equal(sel[0][k], sel[1][k]) for k in sel[1]):
+        raise AssertionError(f"tiny 3C selections differ: {sel}")
+    if card.itq_degraded or card.undecomposed:
+        raise AssertionError(f"tiny 3C on the card: VH-only {card.itq_degraded}, "
+                             f"untouched {card.undecomposed}")
+    worst = max(abs(a.rmse_after - b.rmse_after) / max(b.rmse_after, 1e-12)
+                for a, b in zip(card.reports, cpu.reports))
+    print(f"[tiny_3c] 3C on the card and on the CPU: the same {len(shapes[0])} "
+          f"convs and shapes and the same selections in {len(sel[1])} arms; "
+          f"largest relative rMSE difference {worst:.2e}", flush=True)
+
+
+def _prune(model: str, speed: str, work: Path, *extra: str, mode: str = "prune"):
     from channel_pruning_tpu_torch import cli
 
     shutil.rmtree(work, ignore_errors=True)
-    return cli.main(["prune", "--model", model, "--mode", "prune",
+    return cli.main(["prune", "--model", model, "--mode", mode,
                      "--speed", speed, "--device", "cuda",
                      "--work-dir", str(work), *extra])
 
@@ -411,14 +466,35 @@ def phase_profile(label: str, prune, wall: float) -> None:
         print(f"[profile] {label} {s:8.3f}s {100 * s / busy:5.1f}% {n:6d}x {key[:100]}")
 
 
+def _probs_on(device, prefix: Path, x=None):
+    """Reload an exported model and run one batch to its probabilities: `x`,
+    or a synthetic batch of the model's input shape. Returns (graph, the
+    batch, the probabilities)."""
+    from channel_pruning_tpu_torch.convert import params_to_torch
+    from channel_pruning_tpu_torch.io.caffe import import_model
+    from channel_pruning_tpu_torch.ops.forward import run_graph
+    from channel_pruning_tpu_torch.sampling.inputs import SyntheticInputs
+
+    g, p = import_model(f"{prefix}.prototxt", f"{prefix}.caffemodel")
+    spec = g.inputs[0]
+    if x is None:
+        x = SyntheticInputs(1, spec.shape[0], tuple(spec.shape[1:])).batch(0).to(device)
+    outs, _ = run_graph(g, params_to_torch(p, device), {spec.name: x})
+    return g, x, outs["prob"]
+
+
+def _gives_probabilities(prob) -> bool:
+    """Finite rows that sum to 1."""
+    import torch
+
+    return bool(torch.isfinite(prob).all() and torch.allclose(
+        prob.sum(-1), torch.ones_like(prob[:, 0]), atol=1e-4))
+
+
 def phase_main_path(device):
     import torch
 
-    from channel_pruning_tpu_torch.convert import params_to_torch
     from channel_pruning_tpu_torch.kernels import lasso_cd
-    from channel_pruning_tpu_torch.ops.forward import run_graph
-    from channel_pruning_tpu_torch.sampling.inputs import SyntheticInputs
-    from channel_pruning_tpu_torch.io.caffe import import_model
     from channel_pruning_tpu_torch.models.vgg import build_vgg16
     from channel_pruning_tpu_torch.utils.flops import total_flops
 
@@ -448,13 +524,8 @@ def phase_main_path(device):
     if launches["k1"] <= 0:
         raise AssertionError("the main path never launched the CD kernel")
 
-    g, p = import_model(work / "cp_vgg16.prototxt", work / "cp_vgg16.caffemodel")
-    x = SyntheticInputs(1, g.inputs[0].shape[0], tuple(g.inputs[0].shape[1:])).batch(0)
-    outs, _ = run_graph(g, params_to_torch(p, device), {"data": x.to(device)})
-    prob = outs["prob"]
-    if not (torch.isfinite(prob).all() and
-            torch.allclose(prob.sum(-1), torch.ones(prob.shape[0], device=device),
-                           atol=1e-4)):
+    g, _, prob = _probs_on(device, work / "cp_vgg16")
+    if not _gives_probabilities(prob):
         raise AssertionError("exported model does not give probabilities")
 
     orig = total_flops(build_vgg16(), include_fc=False)
@@ -523,11 +594,7 @@ def phase_resnet50(device):
     """The ResNet-50 2x main path through the CLI with its defaults."""
     import torch
 
-    from channel_pruning_tpu_torch.convert import params_to_torch
     from channel_pruning_tpu_torch.kernels import lasso_cd
-    from channel_pruning_tpu_torch.ops.forward import run_graph
-    from channel_pruning_tpu_torch.sampling.inputs import SyntheticInputs
-    from channel_pruning_tpu_torch.io.caffe import import_model
     from channel_pruning_tpu_torch.models.resnet import build_resnet50
     from channel_pruning_tpu_torch.utils.flops import total_flops
 
@@ -549,13 +616,8 @@ def phase_resnet50(device):
     failures, summary = _resnet50_structure(work, res)
     if launches["k1"] <= 0 or launches["k2"] <= 0:
         failures.append(f"K1 launches {launches['k1']}, K2 {launches['k2']}")
-    g, p = import_model(work / "cp_resnet50.prototxt", work / "cp_resnet50.caffemodel")
-    x = SyntheticInputs(1, g.inputs[0].shape[0], tuple(g.inputs[0].shape[1:])).batch(0)
-    outs, _ = run_graph(g, params_to_torch(p, device), {"data": x.to(device)})
-    prob = outs["prob"]
-    if not (torch.isfinite(prob).all() and
-            torch.allclose(prob.sum(-1), torch.ones(prob.shape[0], device=device),
-                           atol=1e-4)):
+    g, _, prob = _probs_on(device, work / "cp_resnet50")
+    if not _gives_probabilities(prob):
         failures.append("exported model does not give probabilities")
     orig = total_flops(build_resnet50(), include_fc=False)
     new = total_flops(g, include_fc=False)
@@ -568,6 +630,138 @@ def phase_resnet50(device):
     if failures:
         raise AssertionError("ResNet-50 2x: " + "; ".join(failures))
     print("[resnet50] exported model reloads, probabilities sum to 1", flush=True)
+    return launches, wall, res
+
+
+def phase_vgg16_3c(device):
+    """The 3C main path, `cli prune --model vgg16 --mode 3c --speed 4.0`
+    from scratch with its defaults, then `cli combine` and `cli flop` on
+    its export."""
+    import warnings
+
+    import torch
+
+    from channel_pruning_tpu_torch import cli
+    from channel_pruning_tpu_torch.kernels import lasso_cd
+    from channel_pruning_tpu_torch.models.vgg import build_vgg16
+    from channel_pruning_tpu_torch.pipeline import c3
+    from channel_pruning_tpu_torch.utils.config import default_config
+    from channel_pruning_tpu_torch.utils.flops import total_flops
+
+    work = WORK / "vgg16_3c"
+    torch.cuda.reset_peak_memory_stats(device)
+    lasso_cd.LAUNCHES = lasso_cd.LAUNCHES_STREAM = 0
+    real_solve, syncs = c3.solve_3c, []
+
+    def counted_solve(*a, **kw):
+        """The solve under set_sync_debug_mode("warn"): each host sync
+        warns once, and the warnings are counted."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return real_solve(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+
+    c3.solve_3c = counted_solve
+    t0 = time.perf_counter()
+    try:
+        res = _prune("vgg16", "4.0", work, mode="3c")
+    finally:
+        c3.solve_3c = real_solve
+    wall = time.perf_counter() - t0
+    launches = {"k1": lasso_cd.LAUNCHES, "k2": lasso_cd.LAUNCHES_STREAM}
+    peak = torch.cuda.max_memory_allocated(device)
+
+    failures = []
+    cfg = default_config()
+    layers = [r for r in res.reports if r.kind == "3c"]
+    arms = [r for r in res.reports if r.kind == "prune"]
+    full = len(layers) - len(res.itq_degraded) - len(res.undecomposed)
+    if (len(layers), full) != (12, 12):
+        failures.append(f"{full}/{len(layers)} layers fully decomposed, want 12/12")
+    bad_band = []
+    for r in arms:
+        d_c = int(np.floor(r.total / cfg.dic.c_ratio))
+        if not d_c <= r.kept <= d_c + cfg.dic.rank_tol * d_c:
+            bad_band.append((r.conv, d_c, r.kept))
+    if len(arms) != 11 or bad_band:
+        failures.append(f"{len(arms)} arms, out of band (d_c, kept): {bad_band}")
+    bad = [r.conv for r in res.reports
+           if not (np.isfinite(r.rmse_before) and np.isfinite(r.rmse_after))]
+    if bad:
+        failures.append(f"rMSE not finite in {bad}")
+    if launches["k1"] <= 0 or any(not r.grids for r in arms):
+        failures.append(f"K1 launches {launches['k1']}, grids "
+                        f"{[r.grids for r in arms]}")
+
+    g3, x, prob = _probs_on(device, work / "3C_vgg16")
+    if not _gives_probabilities(prob):
+        failures.append("the 3C export does not give probabilities")
+    t = time.perf_counter()
+    _, _, err = cli.main(["combine", "--prototxt", str(work / "3C_vgg16.prototxt"),
+                          "--weights", str(work / "3C_vgg16.caffemodel"),
+                          "--device", "cuda", "--work-dir", str(work)])
+    t_combine = time.perf_counter() - t
+    _, _, prob_cb = _probs_on(device, work / "cb_vgg16", x)
+    cb_err = float((prob_cb - prob).abs().max())
+    if not (err < 1e-4 and cb_err < 1e-4):
+        failures.append(f"combine changes the output: in memory {err}, "
+                        f"reloaded {cb_err}")
+    mults_cb = cli.main(["flop", "--prototxt", str(work / "cb_vgg16.prototxt")])
+    orig = total_flops(build_vgg16(), include_fc=False)
+    mults_3c = total_flops(g3, include_fc=False)
+
+    print("[vgg16_3c] layer    rank  rMSE VH -> final   arm keep     arm rMSE "
+          "before -> after  grids  s spatial (svd) channel (itq loop, svd) arm ckpt-wait")
+    arm_of, last = {}, None        # each decomposed layer's arm report
+    for r in res.reports:
+        if r.kind == "3c":
+            last = r.conv
+            arm_of[last] = None
+        else:
+            arm_of[last] = r
+    for r in layers:
+        a, ph = arm_of[r.conv], r.phases
+        arm = (f"{a.conv:<8s} {a.kept:>3d}/{a.total:<3d} {a.rmse_before:.4f} -> "
+               f"{a.rmse_after:.4f}  {a.grids:5d}" if a else " " * 41)
+        print(f"[vgg16_3c] {r.conv:<8s} {r.rank:>4d}  {r.rmse_before:.4f} -> "
+              f"{r.rmse_after:.4f}   {arm}  {ph['spatial']:6.2f} "
+              f"({ph['svd_host']:.2f}) {ph['channel']:6.2f} ({ph['itq_loop']:.2f}, "
+              f"{ph['itq_svd_host']:.2f}) {a.seconds if a else 0.0:5.2f} "
+              f"{ph.get('checkpoint', 0.0):5.2f}")
+    writes = res.checkpoint_writes
+    phase_sum = {k: sum(r.phases.get(k, 0.0) for r in layers)
+                 for k in ("replay", "svd_host", "spatial", "itq_loop",
+                           "itq_svd_host", "channel", "checkpoint")}
+    print(f"[vgg16_3c] totals: spatial {phase_sum['spatial']:.2f}s (replay "
+          f"{phase_sum['replay']:.2f}, host SVD {phase_sum['svd_host']:.2f}), "
+          f"channel {phase_sum['channel']:.2f}s (ITQ loop "
+          f"{phase_sum['itq_loop']:.2f}, host SVD {phase_sum['itq_svd_host']:.2f}), "
+          f"arms {sum(a.seconds for a in arms):.2f}s, checkpoint waits "
+          f"{phase_sum['checkpoint']:.2f}s; {len(writes)} background checkpoint "
+          f"writes {sum(writes):.2f}s (min/max {min(writes or [0]):.2f}/"
+          f"{max(writes or [0]):.2f}); host syncs in the solve {syncs[0]} "
+          f"(set_sync_debug_mode), of which ITQ eigh "
+          f"{(len(layers) - len(res.undecomposed)) * sum(cfg.solve.itq_iters)}",
+          flush=True)
+    print(f"[vgg16_3c] {full}/{len(layers)} layers fully decomposed (VH+ITQ), "
+          f"{len(res.itq_degraded)} VH-only, {len(res.undecomposed)} untouched; "
+          f"{len(arms) - len(bad_band)}/{len(arms)} arms in band on K1 "
+          f"({launches['k1']} launches, {sum(r.grids or 0 for r in arms)} grids "
+          f"solved); conv mults {orig:,} -> {mults_3c:,} ({orig / mults_3c:.2f}x) "
+          f"-> combine {mults_cb:,} ({orig / mults_cb:.2f}x); combine "
+          f"{t_combine:.2f}s, max |prob difference| {err:.2e} in memory, "
+          f"{cb_err:.2e} reloaded", flush=True)
+    print("[vgg16_3c] wall " + " ".join(f"{k} {v:.2f}s" for k, v in res.wall.items())
+          + f"; total {wall:.2f}s; kernel launches K1 {launches['k1']} K2 "
+          f"{launches['k2']}; peak device memory {peak / 2**30:.2f} GiB", flush=True)
+    if failures:
+        raise AssertionError("VGG-16 3C 4x: " + "; ".join(failures))
+    print("[vgg16_3c] the 3C export reloads, its probabilities sum to 1, and "
+          "the combined model gives them", flush=True)
     return launches, wall, res
 
 
@@ -647,13 +841,17 @@ def main() -> int:
     c3.CHECK_DISPATCH_SYNC = True
     phase_tiny_vgg(device)
     phase_tiny_resnet(device)
+    phase_tiny_3c(device)
     vgg, wall, vgg_res = phase_main_path(device)
     r50, r50_wall, r50_res = phase_resnet50(device)
+    v3c, v3c_wall, _ = phase_vgg16_3c(device)
     phase_sequential("main", _prune_vgg16, vgg_res, _check_vgg_counts)
     phase_sequential("resnet50", _prune_resnet50, r50_res, _check_resnet_bands)
     if args.profile:
         phase_profile("vgg16", _prune_vgg16, wall)
         phase_profile("resnet50", _prune_resnet50, r50_wall)
+        phase_profile("vgg16_3c", lambda work: _prune("vgg16", "4.0", work,
+                                                      mode="3c"), v3c_wall)
 
     print(card)
     source = "channel_pruning_tpu_torch/csrc/lasso_cd.cu"
@@ -661,13 +859,15 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": "lasso_cd_grid", "route": "cuda", "source": source,
          "replaces": "channel_pruning_tpu/kernels/lasso_cd.py:85",
-         "launches": vgg["k1"] + r50["k1"],
-         "launches_by_path": {"vgg16_5x": vgg["k1"], "resnet50_2x": r50["k1"]},
+         "launches": vgg["k1"] + r50["k1"] + v3c["k1"],
+         "launches_by_path": {"vgg16_5x": vgg["k1"], "resnet50_2x": r50["k1"],
+                              "vgg16_3c_4x": v3c["k1"]},
          "library_ms": None, **stats},
         {"name": "lasso_cd_grid_stream", "route": "cuda", "source": source,
          "replaces": "channel_pruning_tpu/kernels/lasso_cd.py:209",
-         "launches": vgg["k2"] + r50["k2"],
-         "launches_by_path": {"vgg16_5x": vgg["k2"], "resnet50_2x": r50["k2"]},
+         "launches": vgg["k2"] + r50["k2"] + v3c["k2"],
+         "launches_by_path": {"vgg16_5x": vgg["k2"], "resnet50_2x": r50["k2"],
+                              "vgg16_3c_4x": v3c["k2"]},
          "library_ms": None, **stream}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
