@@ -1,12 +1,10 @@
-"""Model registry (reference: cfgs.Models / per-model classes, lib/cfgs.py:56-66).
-
-The models the port can build; the Faster-RCNN backbone is not ported yet."""
+"""Model registry (reference: cfgs.Models / per-model classes, lib/cfgs.py:56-66)."""
 from __future__ import annotations
 
 from typing import Callable
 
 from channel_pruning_tpu_torch.graph.ir import Graph
-from channel_pruning_tpu_torch.models import resnet, vgg, xception
+from channel_pruning_tpu_torch.models import faster_rcnn, resnet, vgg, xception
 
 
 MODEL_REGISTRY: dict[str, dict] = {
@@ -52,6 +50,18 @@ MODEL_REGISTRY: dict[str, dict] = {
         "accname": "accuracy@1",
         "family": "xception",
     },
+    "frcnn_vgg16": {
+        "build": faster_rcnn.build_frcnn_backbone,
+        "flops": None,
+        "accname": None,
+        "family": "frcnn",
+    },
+    "tiny_frcnn": {
+        "build": lambda **kw: faster_rcnn.build_tiny_frcnn(**kw)[0],
+        "flops": None,
+        "accname": None,
+        "family": "frcnn",
+    },
     "cifar_resnet20": {
         "build": lambda **kw: resnet.build_cifar_resnet(n=3, **kw),
         "flops": None,
@@ -66,16 +76,7 @@ MODEL_REGISTRY: dict[str, dict] = {
     },
 }
 
-# Faster-RCNN's backbone builder lives beside its finetune heads, which are
-# not ported yet (ROADMAP Queue 1 item 14).
-NOT_PORTED = ("frcnn_vgg16", "tiny_frcnn")
-
-
 def get_model(name: str, **kwargs) -> Graph:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP Queue 1 item 14: "
-            "Xception 2x and the Faster-RCNN backbone)")
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model {name!r}; have {sorted(MODEL_REGISTRY)}")
     build: Callable[..., Graph] = MODEL_REGISTRY[name]["build"]

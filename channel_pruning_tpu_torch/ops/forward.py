@@ -1,16 +1,22 @@
 """Graph executor (port of channel_pruning_tpu/ops/forward.py).
 
 Interprets the `Graph` IR (graph/ir.py) eagerly in NCHW with Caffe-layout
-parameters (conv W (O, I/g, kh, kw), FC W (O, CHW)). Inference only:
-dropout is the identity. `capture` returns interior tensors alongside the
-outputs; `capture_transforms` are applied when each tensor is produced, so
-only the transformed (sampled) value stays alive.
+parameters (conv W (O, I/g, kh, kw), FC W (O, CHW)). `capture` returns
+interior tensors alongside the outputs; `capture_transforms` are applied
+when each tensor is produced, so only the transformed (sampled) value stays
+alive. Gradients flow only with `train=True`; every other pass (the
+freeze, the solver's replays, eval) runs under no_grad. Train-mode dropout
+draws its masks from a `torch.Generator` (the identity without one, as the
+JAX package is without an rng); `compute_dtype` runs the convs in a lower
+precision with f32 outputs.
 """
 from __future__ import annotations
 
 import functools
+import zlib
 from typing import Any, Mapping, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -72,8 +78,48 @@ def _batchnorm(x: torch.Tensor, p: Mapping[str, torch.Tensor],
     return (x - _channel(mean, x.ndim)) * torch.rsqrt(_channel(var, x.ndim) + eps)
 
 
-def compute_layer(l: Layer, env: dict[str, torch.Tensor], params: Params) -> None:
-    """Evaluate one layer into env (tensor name -> NCHW tensor)."""
+def as_dtype(dtype) -> torch.dtype | None:
+    """None, a torch dtype, or its name ("bfloat16", "float16", ...)."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, str(dtype))
+
+
+def _conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+            geo: dict[str, int], compute_dtype: torch.dtype | None) -> torch.Tensor:
+    """With `compute_dtype`, input and weights are cast to it and the output
+    is f32 with the bias added in f32, as the JAX package's
+    preferred_element_type=f32 conv."""
+    kw = dict(stride=(geo["sh"], geo["sw"]), padding=(geo["ph"], geo["pw"]),
+              groups=geo["group"])
+    if compute_dtype is None:
+        return F.conv2d(x, w, b, **kw)
+    out = F.conv2d(x.to(compute_dtype), w.to(compute_dtype), None, **kw).float()
+    return out if b is None else out + _channel(b.float(), out.ndim)
+
+
+def _layer_seed(step_seed: int, salt: int) -> int:
+    return int(np.random.SeedSequence([step_seed, salt]).generate_state(
+        1, np.uint64)[0] & 0x7FFF_FFFF_FFFF_FFFF)
+
+
+def _dropout(l: Layer, x: torch.Tensor, step_seed: int) -> torch.Tensor:
+    """Keep each element with probability 1 - ratio and scale the kept ones
+    by 1/keep. The layer's generator is seeded from the pass's seed and
+    crc32 of the layer's name (not hash(), which Python salts per process),
+    so two dropout layers draw different masks and a seed reproduces them."""
+    keep = 1.0 - float(l.attr("dropout_ratio", 0.5))
+    salt = zlib.crc32(l.name.encode()) & 0x7FFFFFFF
+    gen = torch.Generator(device=x.device).manual_seed(_layer_seed(step_seed, salt))
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def compute_layer(l: Layer, env: dict[str, torch.Tensor], params: Params, *,
+                  step_seed: int | None = None,
+                  compute_dtype: torch.dtype | None = None) -> None:
+    """Evaluate one layer into env (tensor name -> NCHW tensor). Dropout
+    draws a mask only with a `step_seed` (run_graph's train mode)."""
     t = l.type
     if t in _DATA_TYPES:
         return
@@ -81,11 +127,8 @@ def compute_layer(l: Layer, env: dict[str, torch.Tensor], params: Params) -> Non
     top = l.tops[0]
     if t == LT.CONV:
         p = params[l.name]
-        geo = l.conv_geometry()
         b = p.get("b") if l.attr("bias", True) else None
-        env[top] = F.conv2d(x, p["W"], b, stride=(geo["sh"], geo["sw"]),
-                            padding=(geo["ph"], geo["pw"]),
-                            groups=geo["group"])
+        env[top] = _conv2d(x, p["W"], b, l.conv_geometry(), compute_dtype)
     elif t == LT.RELU:
         env[top] = torch.relu(x)
     elif t == LT.POOL:
@@ -114,7 +157,7 @@ def compute_layer(l: Layer, env: dict[str, torch.Tensor], params: Params) -> Non
         out = x * _channel(p["W"], x.ndim)
         env[top] = out + _channel(p["b"], x.ndim) if "b" in p else out
     elif t == LT.DROPOUT:
-        env[top] = x
+        env[top] = x if step_seed is None else _dropout(l, x, step_seed)
     elif t == LT.SOFTMAX:
         env[top] = torch.softmax(x, dim=1)
     elif t == LT.FLATTEN:
@@ -135,12 +178,27 @@ def compute_layer(l: Layer, env: dict[str, torch.Tensor], params: Params) -> Non
         raise NotImplementedError(f"layer type {t}")
 
 
-@torch.no_grad()
 def run_graph(graph: Graph, params: Params, inputs: Mapping[str, torch.Tensor],
-              *, capture: Sequence[str] = (),
+              *, capture: Sequence[str] = (), train: bool = False,
+              generator: torch.Generator | None = None, compute_dtype=None,
               capture_transforms: Mapping[str, Any] | None = None,
               ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
-    """Interpret the graph; returns (outputs, captures), all NCHW."""
+    """Interpret the graph; returns (outputs, captures), all NCHW.
+
+    `train=True` records gradients and, with a `generator`, applies dropout
+    (one seed is drawn from the generator per pass); otherwise the pass
+    runs under no_grad and dropout is the identity."""
+    step_seed = None
+    if train and generator is not None:
+        step_seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                      device=generator.device))
+    with torch.set_grad_enabled(train):
+        return _run(graph, params, inputs, capture, capture_transforms,
+                    step_seed, as_dtype(compute_dtype))
+
+
+def _run(graph, params, inputs, capture, capture_transforms, step_seed,
+         compute_dtype):
     env: dict[str, torch.Tensor] = {spec.name: inputs[spec.name]
                                     for spec in graph.inputs}
     transforms = capture_transforms or {}
@@ -149,7 +207,8 @@ def run_graph(graph: Graph, params: Params, inputs: Mapping[str, torch.Tensor],
     final = set(graph.outputs())
     last_use = {b: i for i, l in enumerate(graph.layers) for b in l.bottoms}
     for i, l in enumerate(graph.layers):
-        compute_layer(l, env, params)
+        compute_layer(l, env, params, step_seed=step_seed,
+                      compute_dtype=compute_dtype)
         # capture at the point of production, before an in-place (aliased
         # top) successor overwrites the name
         for tname in l.tops:
@@ -164,3 +223,23 @@ def run_graph(graph: Graph, params: Params, inputs: Mapping[str, torch.Tensor],
                 env.pop(b, None)
     outputs = {t: env[t] for t in final if t in env}
     return outputs, caps
+
+
+def logits_tensor_of(graph: Graph) -> str:
+    """The bottom of the Softmax/loss head, else the last graph output."""
+    heads = graph.by_type(LT.SOFTMAX, LT.SOFTMAX_LOSS)
+    return heads[0].bottoms[0] if heads else graph.outputs()[-1]
+
+
+def logits_fn(graph: Graph, logits_tensor: str | None = None):
+    """fn(params, x, train=False, generator=None) -> logits, for training
+    and eval."""
+    logits_tensor = logits_tensor or logits_tensor_of(graph)
+
+    def fn(params, x, train=False, generator=None):
+        _, caps = run_graph(graph, params, {graph.inputs[0].name: x},
+                            capture=(logits_tensor,), train=train,
+                            generator=generator)
+        return caps[logits_tensor]
+
+    return fn

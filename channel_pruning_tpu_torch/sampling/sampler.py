@@ -245,3 +245,39 @@ def freeze(graph: Graph, params, inputs, *, device,
     if not isinstance(inputs, SyntheticInputs):
         inputs = np.asarray(inputs)
     return FrozenCache(inputs=inputs, plan=plan, feats=feats, labels=labels)
+
+
+def channel_stats(graph: Graph, params, inputs, tensors: Sequence[str], *,
+                  device, chunk_batches: int = 25
+                  ) -> dict[str, tuple[np.ndarray, np.ndarray]]:
+    """Per-channel (mean, std) of each tensor over every image and spatial
+    position of the calibration set (the measurement pass of the
+    reference's add_bn). The set is cut into chunks as the freeze cuts it;
+    each chunk's sums and sums of squares are reduced on `device` and
+    accumulated in f64 on the host; the variance is floored at 1e-12."""
+    tensors = tuple(tensors)
+    input_name = graph.inputs[0].name
+    sub = graph.ancestors_subgraph(tensors)
+    chunk_batches = clamp_chunk_for_hbm(graph, int(inputs.shape[1]),
+                                        chunk_batches)
+
+    def tf(v):
+        axes = (0, 2, 3) if v.dim() == 4 else (0,)
+        return v.sum(dim=axes), (v * v).sum(dim=axes), v.numel() // v.shape[1]
+
+    acc = {t: [0.0, 0.0, 0] for t in tensors}
+    for lo, hi in _chunk_iter(inputs.shape[0], chunk_batches):
+        x = device_chunk(inputs, lo, hi, device)
+        _, caps = run_graph(sub, params, {input_name: x},
+                            capture_transforms={t: tf for t in tensors})
+        for t in tensors:
+            s, ss, n = caps[t]
+            acc[t][0] += s.cpu().numpy().astype(np.float64)
+            acc[t][1] += ss.cpu().numpy().astype(np.float64)
+            acc[t][2] += n
+    out = {}
+    for t, (s, ss, n) in acc.items():
+        mean = s / n
+        var = np.maximum(ss / n - mean ** 2, 1e-12)
+        out[t] = (mean.astype(np.float32), np.sqrt(var).astype(np.float32))
+    return out

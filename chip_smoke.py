@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (channel_pruning_tpu_torch) on one
 NVIDIA card:
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--seed N]
 
 Phases, each printing its own lines; any failure raises (exit code != 0):
   1. the card: torch.cuda must be available; nvidia-smi name and power limit;
@@ -61,7 +61,31 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
      how many layers select as the pipelined pass and the lowest per-layer
      IoU are printed (float32 against float64 grid endpoints may move a
      near-tie probe on random weights);
-  6. with --profile only: each main path (the 3C path too) once more under
+  6. training at full VGG-16 width, from the main path's cp_vgg16: one train
+     step (dropout off) at batch 2 on the card and on the CPU from the same
+     parameters and batch: in f64 the losses to 1e-10 and each blob's change
+     to 1e-6 of its largest change; in f32, against the CPU's f64 step, the
+     loss to 1e-4 and the gradients as one vector to 2e-2; `cli finetune` 20 steps at batch 32 on
+     synthetic batches, lr 1e-5, Nesterov (every loss finite; ms/step,
+     images/s, peak memory), and the train step alone on one device-resident
+     batch; `cli eval` over 5 batches (160 images); `cli time --per-layer
+     --compare-prototxt` (VGG-16 against cp_vgg16 at batch 32: the per-layer
+     table and the measured speed-up beside the conv-mult ratio); `cli
+     time --loop-steps` of both nets in f32 and bf16 (images/s, MFU); `cli
+     deploy` of cp_vgg16, whose reloaded .pt2 gives run_graph's
+     probabilities to 1e-5;
+  7. the accuracy loop on a seeded, learnable task (`--seed`): raw-Datum
+     LMDBs written with the port's write_lmdb (1,280 training and 320
+     held-out 32x32 records, one smooth template per class plus noise of a
+     strength drawn per record), then `cli finetune` of digits_vgg from
+     scratch, `cli eval`, `cli prune --data-dir --speed 16.0` (K1), `cli
+     eval`, `cli finetune` to recover and `cli eval`: trained top-1 >= 0.9,
+     the prune costs held-out top-1 and the recovery wins some of it back
+     (pruned < trained, recovered > pruned), and every artifact reloads and
+     gives probabilities (their held-out cross-entropy is printed);
+  8. `cli addbn` on the 3C 4x export of 5d, then one `cli finetune` step
+     with clip 35: the BN count, and a finite loss;
+  9. with --profile only: each main path (the 3C path too) once more under
      torch.profiler, with the device's busy time, idle share, the CD
      kernels' share and the top kernels.
 The next-to-last line is a JSON record of the kernels; the last line is
@@ -804,6 +828,357 @@ def _check_resnet_bands(work: Path, res) -> None:
     print(f"[resnet50] sequential: {summary}")
 
 
+# The accuracy loop's seeded task: 10 classes, each one smooth template
+# (mid-grey plus `contrast` times a uniform [-1, 1] pattern of 4 x 4 blocks,
+# in BGR) plus Gaussian pixel noise whose standard deviation is drawn per
+# record from `noise`, clipped to uint8. The noisy records keep the
+# held-out top-1 below 1, so that what a prune costs shows there. Set on
+# the CPU (tools/task_calibration.py) so that the JAX package's CLI,
+# trained on the same LMDB with the same schedule, also reaches top-1 >= 0.9
+# on the held-out records. A 4x prune costs this task no held-out top-1 on
+# the CPU, and 24x and more can kill the net: the loop prunes at 16x.
+TASK = {"size": 32, "classes": 10, "n_train": 1280, "n_val": 320,
+        "contrast": 40.0, "noise": (30.0, 120.0)}
+TASK_TRAIN = ["--batch", "64", "--lr", "1e-3", "--steps", "800"]
+TASK_PRUNE = ["--speed", "16.0", "--batch", "16", "--cal-batches", "20",
+              "--cal-batch", "16"]
+TASK_RECOVER = ["--batch", "64", "--lr", "3e-4", "--steps", "400"]
+
+
+def write_task_lmdbs(root: Path, seed: int) -> tuple[Path, Path]:
+    """(train, held-out) LMDBs of raw Datums for TASK, from `seed`."""
+    from channel_pruning_tpu_torch.data.lmdb import Datum, encode_datum, write_lmdb
+
+    size, classes = TASK["size"], TASK["classes"]
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(-1, 1, (classes, 3, 4, 4))
+    templates = 127.5 + TASK["contrast"] * np.kron(
+        base, np.ones((1, 1, size // 4, size // 4)))
+    out = []
+    for name in ("train", "val"):
+        n = TASK[f"n_{name}"]
+        labels = rng.integers(0, classes, n)
+        sigma = rng.uniform(*TASK["noise"], (n, 1, 1, 1))
+        imgs = np.clip(templates[labels] + sigma * rng.normal(
+            0, 1, (n, 3, size, size)), 0, 255)
+        imgs = imgs.astype(np.uint8)
+        write_lmdb(root / name, [(f"{i:08d}".encode(), encode_datum(Datum(
+            channels=3, height=size, width=size, data=imgs[i].tobytes(),
+            label=int(labels[i])))) for i in range(n)])
+        out.append(root / name)
+    return out[0], out[1]
+
+
+def _one_train_step(graph, params, x, y, cfg, device, dtype):
+    """(loss, updated numpy params, numpy gradients) of one train step in
+    `dtype`, dropout off."""
+    import torch
+
+    from channel_pruning_tpu_torch.train import finetune as ft
+
+    params = {n: {k: np.asarray(v, dtype) for k, v in b.items()}
+              for n, b in params.items()}
+    state = ft.init_state(graph, params, cfg, device=device)
+    grads = {}
+    # read the gradients before the update: the optimizer's multi-tensor
+    # SGD adds the Nesterov term into them in place
+    state.optimizer.register_step_pre_hook(lambda *_: grads.update({
+        n: {k: v.grad.cpu().numpy().copy() for k, v in b.items()
+            if v.grad is not None}
+        for n, b in state.params.items()}))
+    step = ft.build_train_step(graph, cfg)
+    state, m = step(state, torch.from_numpy(x.astype(dtype)).to(device),
+                    torch.from_numpy(y).to(device))
+    return float(m["loss"]), state.model.to_numpy(), grads
+
+
+def _blob_gaps(a, b) -> tuple[float, str, float]:
+    """(the largest |a - b| of a blob over that blob's largest |b|, the
+    blob, the L2 norm of a - b over all blobs over that of b) for two
+    {layer: {blob: array}} dicts of the same blobs."""
+    worst, where, d2, n2 = 0.0, "", 0.0, 0.0
+    for n in b:
+        for k in b[n]:
+            d, ref = a[n][k] - b[n][k], b[n][k]
+            gap = float(np.abs(d).max()) / max(float(np.abs(ref).max()), 1e-300)
+            if gap > worst:
+                worst, where = gap, f"{n}.{k}"
+            d2 += float((d.astype(np.float64) ** 2).sum())
+            n2 += float((ref.astype(np.float64) ** 2).sum())
+    return worst, where, float(np.sqrt(d2 / max(n2, 1e-300)))
+
+
+def phase_train_vgg16(device, seed: int) -> dict:
+    """Training, eval, timing and deploy at full VGG-16 width on the main
+    path's cp_vgg16 (5x): see the module docstring, phase 6."""
+    import torch
+
+    from channel_pruning_tpu_torch import cli, deploy
+    from channel_pruning_tpu_torch.convert import params_to_torch
+    from channel_pruning_tpu_torch.io.caffe import import_model
+    from channel_pruning_tpu_torch.ops.forward import run_graph
+    from channel_pruning_tpu_torch.train import finetune as ft
+    from channel_pruning_tpu_torch.utils.config import FinetuneConfig
+
+    cp = WORK / "vgg16" / "cp_vgg16"
+    cp_args = ["--prototxt", f"{cp}.prototxt", "--weights", f"{cp}.caffemodel"]
+    out = {}
+
+    # one step, card against CPU. The f64 step checks the function: each
+    # blob's change on the card to 1e-6 of that blob's largest change on
+    # the CPU (f64 rounding is far below), which a wrong gradient or update
+    # on either device would break. The f32 step, the precision the port
+    # trains in, is held to the CPU's f64 step: the loss to 1e-4 and each
+    # device's gradients, as one vector, to 2e-2. The card's f32 backward
+    # runs the deterministic cuDNN algorithms its heuristics pick
+    # (benchmark off), which round more than the CPU's, and a bias whose
+    # gradient is a sum that nearly cancels keeps few correct digits.
+    g, params = import_model(f"{cp}.prototxt", f"{cp}.caffemodel", batch=2)
+    x, y = next(ft.synthetic_batches(2, image=224, classes=1000, seed=seed))
+    cfg = FinetuneConfig(base_lr=1e-2)
+    t = time.perf_counter()
+    cpu = torch.device("cpu")
+    runs = {(d.type, np.dtype(dt).name): _one_train_step(g, params, x, y, cfg, d, dt)
+            for dt in (np.float64, np.float32) for d in (cpu, device)}
+    ref_loss, ref_p, ref_g = runs["cpu", "float64"]
+    card_p = runs["cuda", "float64"][1]
+
+    def change(p):
+        return {n: {k: p[n][k] - np.asarray(params[n][k], p[n][k].dtype)
+                    for k in p[n]} for n in p}
+
+    c_worst, c_where, _ = _blob_gaps(change(card_p), change(ref_p))
+    agree = {"float64": {
+        "loss_rel": abs(runs["cuda", "float64"][0] - ref_loss) / abs(ref_loss),
+        "change_blob_worst": [c_worst, c_where]}}
+    for dev in ("cpu", "cuda"):
+        loss, _, grads = runs[dev, "float32"]
+        g_worst, g_where, g_norm = _blob_gaps(grads, ref_g)
+        agree[f"float32 {dev}"] = {"loss_rel": abs(loss - ref_loss) / abs(ref_loss),
+                                   "grad_norm_rel": g_norm,
+                                   "grad_blob_worst": [g_worst, g_where]}
+    del runs, ref_p, card_p
+    a64, c32, p32 = agree["float64"], agree["float32 cuda"], agree["float32 cpu"]
+    print(f"[train] one step at batch 2, dropout off, card against CPU: f64 loss "
+          f"relative {a64['loss_rel']:.1e} (bound 1e-10), worst blob change "
+          f"{c_worst:.1e} of that blob's largest ({c_where}; bound 1e-6); f32 "
+          f"against the CPU's f64: card loss {c32['loss_rel']:.1e}, CPU loss "
+          f"{p32['loss_rel']:.1e} (bound 1e-4), card gradients as one vector "
+          f"{c32['grad_norm_rel']:.1e}, CPU {p32['grad_norm_rel']:.1e} (bound "
+          f"2e-2), worst blob gradient card {c32['grad_blob_worst'][0]:.1e} "
+          f"({c32['grad_blob_worst'][1]}), CPU {p32['grad_blob_worst'][0]:.1e} "
+          f"({p32['grad_blob_worst'][1]}); {time.perf_counter() - t:.1f}s", flush=True)
+    if not (a64["loss_rel"] < 1e-10 and c_worst < 1e-6
+            and c32["loss_rel"] < 1e-4 and c32["grad_norm_rel"] < 2e-2):
+        raise AssertionError(f"train step: card and CPU disagree ({agree})")
+    out["step_card_vs_cpu"] = agree
+
+    # cli finetune, 20 steps at batch 32 on synthetic batches
+    torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    state = cli.main(["finetune", *cp_args, "--batch", "32", "--steps", "20",
+                      "--lr", "1e-5", "--seed", str(seed), "--device", "cuda",
+                      "--work-dir", str(WORK / "vgg16_ft")])
+    wall = time.perf_counter() - t
+    losses = torch.stack([m["loss"] for m in state.history]).cpu().numpy()
+    peak = torch.cuda.max_memory_allocated(device)
+    ms = float(np.mean(state.step_ms))
+    out["finetune"] = {"steps": state.step, "ms_per_step": ms,
+                       "images_per_s": 32e3 / ms, "peak_gib": peak / 2**30,
+                       "wall_s": wall, "loss_first": float(losses[0]),
+                       "loss_last": float(losses[-1])}
+    if len(losses) != 20 or not np.isfinite(losses).all():
+        raise AssertionError(f"finetune losses {losses}")
+    # the train step alone, on one device-resident batch
+    xb, yb = next(ft.synthetic_batches(32, image=224, classes=1000, seed=seed + 1))
+    xb, yb = torch.from_numpy(xb).to(device), torch.from_numpy(yb).to(device)
+    step = ft.build_train_step(g, FinetuneConfig(base_lr=1e-5))
+    step(state, xb, yb)
+    step_ms, _ = _time_ms(lambda: step(state, xb, yb), 10)
+    out["finetune"]["device_step_ms"] = step_ms
+    print(f"[train] cli finetune cp_vgg16: 20 steps at batch 32 in {wall:.2f}s "
+          f"(export included): {ms:.2f} ms/step from the second step on "
+          f"(synthetic batches drawn on the host), {32e3 / ms:.1f} images/s; "
+          f"the train step alone on one device batch {step_ms:.2f} ms "
+          f"({32e3 / step_ms:.1f} images/s); peak device memory "
+          f"{peak / 2**30:.2f} GiB; losses {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"all 20 finite", flush=True)
+    del state, step, xb, yb
+
+    ft_prefix = WORK / "vgg16_ft" / "ft_vgg16"
+    res = cli.main(["eval", "--prototxt", f"{ft_prefix}.prototxt", "--weights",
+                    f"{ft_prefix}.caffemodel", "--batch", "32", "--eval-batches",
+                    "5", "--device", "cuda"])
+    if res["n_images"] != 160:
+        raise AssertionError(f"eval saw {res['n_images']} images, want 160")
+    print(f"[train] cli eval of the finetuned cp_vgg16: {res}", flush=True)
+
+    # per-layer: the original VGG-16 against cp_vgg16 at batch 32
+    per = cli.main(["time", "--model", "vgg16", "--batch", "32", "--per-layer",
+                    "--compare-prototxt", f"{cp}.prototxt", "--compare-weights",
+                    f"{cp}.caffemodel", "--device", "cuda"])
+    other = per["compare"]
+    conv, mults = ([sum(r[key] for r in t["layers"] if r["type"] == "Convolution")
+                    for t in (per, other)] for key in ("ms", "mults"))
+    out["per_layer"] = {
+        "total_ms": [per["sum_ms"], other["sum_ms"]], "conv_ms": conv,
+        "speedup": per["sum_ms"] / other["sum_ms"], "conv_speedup": conv[0] / conv[1],
+        "conv_mult_ratio": mults[0] / mults[1],
+        "layers": {r["layer"]: [r["ms"], o["ms"]] for r in per["layers"]
+                   for o in other["layers"] if o["layer"] == r["layer"]}}
+    print(f"[train] per-layer forward at batch 32: VGG-16 {per['sum_ms']:.3f} ms, "
+          f"cp_vgg16 {other['sum_ms']:.3f} ms, measured speed-up "
+          f"{out['per_layer']['speedup']:.2f}x (convs alone {conv[0]:.3f} -> "
+          f"{conv[1]:.3f} ms, {out['per_layer']['conv_speedup']:.2f}x) against "
+          f"the conv-mult ratio {mults[0] / mults[1]:.2f}x", flush=True)
+
+    # forward throughput and MFU of both nets, f32 and bf16 convs
+    out["time"] = {}
+    for label, model in (("vgg16", ["--model", "vgg16"]), ("cp_vgg16", cp_args)):
+        for dtype in ("float32", "bfloat16"):
+            r = cli.main(["time", *model, "--batch", "32", "--loop-steps", "20",
+                          "--dtype", dtype, "--device", "cuda"])
+            out["time"][f"{label} {dtype}"] = {
+                "ms": r["device_ms_per_step"], "images_per_s": r["images_per_sec"],
+                "mfu": r["mfu"]}
+            mfu = "not measured (no peak for this card)" if r["mfu"] is None \
+                else f"{r['mfu']:.4f} of the H100's dense {dtype} peak"
+            print(f"[train] forward {label} {dtype} at batch 32: "
+                  f"{r['device_ms_per_step']:.3f} ms, {r['images_per_sec']:.1f} "
+                  f"images/s, MFU {mfu}; flags {r['flags']}", flush=True)
+
+    # deploy: the reloaded .pt2 against run_graph
+    path = cli.main(["deploy", *cp_args, "--batch", "8", "--device", "cuda",
+                     "--work-dir", str(WORK / "vgg16_deploy")])
+    fn = deploy.load_serialized(path)
+    g8, p8 = import_model(f"{cp}.prototxt", f"{cp}.caffemodel", batch=8)
+    xd = torch.from_numpy(next(ft.synthetic_batches(8, seed=seed))[0]).to(device)
+    want = run_graph(g8, params_to_torch(p8, device), {"data": xd})[0]["prob"]
+    err = float((fn(xd) - want).abs().max())
+    out["deploy_max_abs_err"] = err
+    print(f"[train] cli deploy: {path} reloads; max |prob(.pt2) - prob(run_graph)| "
+          f"{err:.2e} on the card (bound 1e-5)", flush=True)
+    if not err <= 1e-5:
+        raise AssertionError(f"deploy reload differs by {err}")
+    return out
+
+
+def accuracy_loop(root: Path, seed: int, device: str) -> dict:
+    """train -> eval -> prune -> eval -> recover -> eval on the seeded task,
+    all through the CLI on `device`, in `root`: held-out top-1 and
+    cross-entropy of each stage, and the walls."""
+    from channel_pruning_tpu_torch import cli
+    from channel_pruning_tpu_torch.io.caffe import import_model
+    from channel_pruning_tpu_torch.utils.flops import total_flops
+
+    shutil.rmtree(root, ignore_errors=True)
+    train, val = write_task_lmdbs(root, seed)
+    run = ["--device", device, "--seed", str(seed)]
+    stages = {"trained": root / "train" / "ft_digits_vgg",
+              "pruned": root / "prune" / "cp_digits_vgg",
+              "recovered": root / "recover" / "ft_digits_vgg"}
+    walls = {}
+
+    def timed(name, argv):
+        t = time.perf_counter()
+        out = cli.main(argv)
+        walls[name] = time.perf_counter() - t
+        return out
+
+    timed("train", ["finetune", "--model", "digits_vgg", "--data-dir", str(train),
+                    *TASK_TRAIN, *run, "--work-dir", str(root / "train")])
+    res = timed("prune", ["prune", "--prototxt", f"{stages['trained']}.prototxt",
+                          "--weights", f"{stages['trained']}.caffemodel",
+                          "--data-dir", str(train), *TASK_PRUNE, *run,
+                          "--work-dir", str(root / "prune")])
+    timed("recover", ["finetune", "--prototxt", f"{stages['pruned']}.prototxt",
+                      "--weights", f"{stages['pruned']}.caffemodel",
+                      "--data-dir", str(train), *TASK_RECOVER, *run,
+                      "--work-dir", str(root / "recover")])
+    out = {"walls": walls, "layers": len(res.reports)}
+    for name, prefix in stages.items():
+        ev = cli.main(["eval", "--prototxt", f"{prefix}.prototxt", "--weights",
+                       f"{prefix}.caffemodel", "--data-dir", str(val),
+                       "--batch", "32", "--device", device])
+        if ev["n_images"] != TASK["n_val"]:
+            raise AssertionError(f"eval of {prefix.name}: {ev}")
+        out[name] = ev["accuracy@1"]
+        out[f"{name}_xent"] = _heldout_xent(device, prefix, val)
+    mults = [total_flops(import_model(f"{stages[k]}.prototxt")[0], include_fc=False)
+             for k in ("trained", "pruned")]
+    out["conv_mult_ratio"] = mults[0] / mults[1]
+    return out
+
+
+def _heldout_xent(device, prefix: Path, val: Path) -> float:
+    """Reload an artifact and return its mean cross-entropy over the
+    held-out records; raises unless every row is a probability vector."""
+    import torch
+
+    from channel_pruning_tpu_torch.convert import params_to_torch
+    from channel_pruning_tpu_torch.data.lmdb import lmdb_batches
+    from channel_pruning_tpu_torch.io.caffe import import_model
+    from channel_pruning_tpu_torch.ops.forward import run_graph
+
+    g, p = import_model(f"{prefix}.prototxt", f"{prefix}.caffemodel")
+    params = params_to_torch(p, device)
+    total, n = 0.0, 0
+    for x, y in lmdb_batches(val, 32, crop=TASK["size"]):
+        prob = run_graph(g, params, {g.inputs[0].name: torch.from_numpy(x).to(device)}
+                         )[0]["prob"]
+        if not _gives_probabilities(prob):
+            raise AssertionError(f"{prefix} does not reload to probabilities")
+        picked = prob.double()[torch.arange(len(y)), torch.from_numpy(y).long()]
+        total += float(-picked.clamp_min(1e-300).log().sum())
+        n += len(y)
+    return total / n
+
+
+def phase_accuracy_loop(device, seed: int) -> dict:
+    """The accuracy loop on the card: see the module docstring, phase 7."""
+    from channel_pruning_tpu_torch.kernels import lasso_cd
+
+    lasso_cd.LAUNCHES = lasso_cd.LAUNCHES_STREAM = 0
+    res = accuracy_loop(WORK / "digits", seed, str(device))
+    res["launches"] = {"k1": lasso_cd.LAUNCHES, "k2": lasso_cd.LAUNCHES_STREAM}
+    print(f"[accuracy] seeded task (seed {seed}; {TASK}; {' '.join(TASK_PRUNE)}): "
+          + ", ".join(f"{k} top-1 {res[k]:.4f} (held-out cross-entropy "
+                      f"{res[k + '_xent']:.5f})"
+                      for k in ("trained", "pruned", "recovered"))
+          + f"; conv mults {res['conv_mult_ratio']:.2f}x fewer over "
+          f"{res['layers']} layers; K1 launches {res['launches']['k1']} (all in "
+          "the prune); walls " + " ".join(f"{k} {v:.2f}s" for k, v in
+                                            res["walls"].items())
+          + "; every artifact reloads and gives probabilities", flush=True)
+    if not (res["trained"] >= 0.9 and res["pruned"] < res["trained"]
+            and res["recovered"] > res["pruned"] and res["launches"]["k1"] > 0):
+        raise AssertionError(f"accuracy loop: {res}")
+    return res
+
+
+def phase_addbn_3c(device) -> dict:
+    """`cli addbn` on the 3C 4x export, then one finetune step, clip 35."""
+    from channel_pruning_tpu_torch import cli
+    from channel_pruning_tpu_torch.graph.ir import LT
+
+    src = WORK / "vgg16_3c" / "3C_vgg16"
+    work = WORK / "vgg16_3c_bn"
+    g2, _ = cli.main(["addbn", "--prototxt", f"{src}.prototxt", "--weights",
+                      f"{src}.caffemodel", "--batch", "8", "--cal-batches", "5",
+                      "--cal-batch", "10", "--device", "cuda", "--work-dir", str(work)])
+    n_bn = len(g2.by_type(LT.BN))
+    state = cli.main(["finetune", "--prototxt", str(work / "bn_vgg16.prototxt"),
+                      "--weights", str(work / "bn_vgg16.caffemodel"), "--batch", "8",
+                      "--steps", "1", "--lr", "1e-5", "--clip-gradients", "35",
+                      "--device", "cuda", "--work-dir", str(work)])
+    loss = float(state.history[0]["loss"])
+    print(f"[addbn_3c] {n_bn} BatchNorm layers inserted into the 3C 4x model; one "
+          f"finetune step (clip 35) at batch 8: loss {loss:.4f}", flush=True)
+    if not (n_bn > 0 and np.isfinite(loss)):
+        raise AssertionError(f"addbn on 3C: {n_bn} BN layers, loss {loss}")
+    return {"bn_layers": n_bn, "loss": loss}
+
+
 def main() -> int:
     import argparse
 
@@ -813,6 +1188,9 @@ def main() -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also run the main paths under torch.profiler and "
                              "print device busy time, idle share and top kernels")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the accuracy loop's task and of the "
+                             "training phases' batches")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this smoke needs an "
@@ -847,27 +1225,36 @@ def main() -> int:
     v3c, v3c_wall, _ = phase_vgg16_3c(device)
     phase_sequential("main", _prune_vgg16, vgg_res, _check_vgg_counts)
     phase_sequential("resnet50", _prune_resnet50, r50_res, _check_resnet_bands)
+    train = phase_train_vgg16(device, args.seed)
+    acc = phase_accuracy_loop(device, args.seed)
+    addbn = phase_addbn_3c(device)
+    digits = acc["launches"]
     if args.profile:
         phase_profile("vgg16", _prune_vgg16, wall)
         phase_profile("resnet50", _prune_resnet50, r50_wall)
         phase_profile("vgg16_3c", lambda work: _prune("vgg16", "4.0", work,
                                                       mode="3c"), v3c_wall)
 
+    (WORK / "train_phases.json").write_text(json.dumps(
+        {"card": card, "train": train, "accuracy": acc, "addbn_3c": addbn}, indent=1))
+    print(f"[train] phase numbers -> {WORK / 'train_phases.json'}")
     print(card)
     source = "channel_pruning_tpu_torch/csrc/lasso_cd.cu"
     # library_ms: no PyTorch call computes Gram-form coordinate descent
     print(json.dumps({"kernels": [
         {"name": "lasso_cd_grid", "route": "cuda", "source": source,
          "replaces": "channel_pruning_tpu/kernels/lasso_cd.py:85",
-         "launches": vgg["k1"] + r50["k1"] + v3c["k1"],
+         "launches": vgg["k1"] + r50["k1"] + v3c["k1"] + digits["k1"],
          "launches_by_path": {"vgg16_5x": vgg["k1"], "resnet50_2x": r50["k1"],
-                              "vgg16_3c_4x": v3c["k1"]},
+                              "vgg16_3c_4x": v3c["k1"],
+                              "digits_vgg_16x": digits["k1"]},
          "library_ms": None, **stats},
         {"name": "lasso_cd_grid_stream", "route": "cuda", "source": source,
          "replaces": "channel_pruning_tpu/kernels/lasso_cd.py:209",
-         "launches": vgg["k2"] + r50["k2"] + v3c["k2"],
+         "launches": vgg["k2"] + r50["k2"] + v3c["k2"] + digits["k2"],
          "launches_by_path": {"vgg16_5x": vgg["k2"], "resnet50_2x": r50["k2"],
-                              "vgg16_3c_4x": v3c["k2"]},
+                              "vgg16_3c_4x": v3c["k2"],
+                              "digits_vgg_16x": digits["k2"]},
          "library_ms": None, **stream}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,7 +28,8 @@ from channel_pruning_tpu_torch.pipeline.checkpoint import SolveCheckpoint
 from channel_pruning_tpu_torch.utils import config, flops
 
 MODELS = ["vgg16", "resnet50", "digits_vgg", "tiny_vgg", "tiny_resnet",
-          "xception", "tiny_xception", "cifar_resnet20", "cifar_plain20"]
+          "xception", "tiny_xception", "cifar_resnet20", "cifar_plain20",
+          "frcnn_vgg16", "tiny_frcnn"]
 
 
 def layer_tuples(g):
@@ -53,10 +54,30 @@ def test_builders_give_equal_graphs(name):
 
 
 def test_registry_leaves_out_only_faster_rcnn():
-    assert set(jax_zoo.MODEL_REGISTRY) - set(zoo.MODEL_REGISTRY) == \
-        set(zoo.NOT_PORTED)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        zoo.get_model("tiny_frcnn")
+    """Since the Faster-RCNN builders are ported, nothing is left out: the
+    port registers every model of the JAX package, with the same counts."""
+    assert set(zoo.MODEL_REGISTRY) == set(jax_zoo.MODEL_REGISTRY)
+    for name, entry in jax_zoo.MODEL_REGISTRY.items():
+        assert (zoo.MODEL_REGISTRY[name]["flops"],
+                zoo.MODEL_REGISTRY[name]["family"]) == \
+            (entry["flops"], entry["family"]), name
+
+
+def test_faster_rcnn_builders_and_heads_equal():
+    from channel_pruning_tpu.models import faster_rcnn as jax_frcnn
+    from channel_pruning_tpu_torch.models import faster_rcnn
+
+    for kw in ({}, {"with_rpn": False, "image_size": 320, "num_anchors": 3}):
+        assert layer_tuples(faster_rcnn.build_frcnn_backbone(**kw)) == \
+            layer_tuples(jax_frcnn.build_frcnn_backbone(**kw))
+    g, p = faster_rcnn.build_tiny_frcnn(batch=3, image_size=32, seed=5)
+    g_j, p_j = jax_frcnn.build_tiny_frcnn(batch=3, image_size=32, seed=5)
+    assert layer_tuples(g) == layer_tuples(g_j)
+    assert_params_equal(p, p_j)
+    assert [dataclasses.astuple(h) for h in faster_rcnn.frcnn_heads(g)] == \
+        [dataclasses.astuple(h) for h in jax_frcnn.frcnn_heads(g_j)]
+    with pytest.raises(ValueError, match="RPN"):
+        faster_rcnn.frcnn_heads(faster_rcnn.build_frcnn_backbone(with_rpn=False))
 
 
 @pytest.mark.parametrize("name", ["tiny_vgg", "tiny_resnet", "tiny_xception",
