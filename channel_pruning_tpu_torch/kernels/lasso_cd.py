@@ -24,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -94,16 +95,37 @@ def _nvcc() -> str:
     return found
 
 
-def _so_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"liblasso_cd_{digest}.so"
+def _so_path(source: Path = SOURCE) -> Path:
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 
-def ptxas_report() -> str:
-    """ptxas's registers, shared memory and spills for each kernel, from
-    the build of the current source ("" before it is built here)."""
-    path = _so_path().with_suffix(".ptxas.txt")
+def ptxas_report(source: Path = SOURCE) -> str:
+    """ptxas's registers, shared memory and spills for each kernel of
+    `source`, from its build ("" before it is built here)."""
+    path = _so_path(source).with_suffix(".ptxas.txt")
     return path.read_text() if path.exists() else ""
+
+
+def compile_source(source: Path) -> ctypes.CDLL:
+    """Compile one CUDA source of csrc/ with nvcc for sm_90a into a shared
+    library under `_build/` (once per source hash) and load it. Sources
+    built from several threads at once run their nvcc side by side."""
+    so = _so_path(source)
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
+               "-Xcompiler", "-fPIC", "-o", str(tmp), str(source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        # ptxas's registers / shared memory / spills for each kernel
+        so.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, so)       # atomic: a concurrent build never sees half
+    return ctypes.CDLL(str(so))
 
 
 def build() -> ctypes.CDLL:
@@ -112,21 +134,7 @@ def build() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    so = _so_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-               "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        # ptxas's registers / shared memory / spills for each kernel
-        so.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)       # atomic: a concurrent build never sees half
-    lib = ctypes.CDLL(str(so))
+    lib = compile_source(SOURCE)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name in ("cp_lasso_cd_grid", "cp_lasso_cd_grid_stream"):
         fn = getattr(lib, name)

@@ -12,6 +12,12 @@
    endpoints, a host read per round), or on the device in `_fused_search`
    (the default, as in the JAX CLI: float32 endpoints, no host read until
    the result is returned).
+
+Also the fixed-alpha selection of the reference's autodet mode
+(`cd_solve`, `select_channels_fixed`) and the row-sparse group lasso for
+1x1 and FC consumers (`group_gram`, `search_alpha_group` over
+kernels/group_cd.group_cd_solve_grid: K3 on the card, its plain version on
+the CPU; `select_channels_group`).
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from channel_pruning_tpu_torch.kernels import lasso_cd
+from channel_pruning_tpu_torch.kernels import group_cd, lasso_cd
 
 
 class LassoGram(NamedTuple):
@@ -46,6 +52,16 @@ def lasso_gram(Z: torch.Tensor, y: torch.Tensor) -> LassoGram:
                      n_samples=Z.shape[0])
 
 
+def cd_solve(G: torch.Tensor, b: torch.Tensor, alpha_n: float,
+             n_sweeps: int = 200, tol: float = 1e-8) -> torch.Tensor:
+    """Cyclic coordinate descent for one alpha from beta = 0: (c,) betas.
+    The JAX package's `cd_solve` with beta0 = 0 is the grid solve at one
+    alpha (the same update and stopping rule, at least one sweep), so this
+    is one launch of K1 (c <= 1024) or K2 on the card."""
+    a = torch.tensor([alpha_n], dtype=torch.float32).to(G.device)
+    return lasso_cd.cd_solve_grid(G, b, a, n_sweeps=n_sweeps, tol=tol)[0]
+
+
 def support_mask(betas: torch.Tensor, rel_eps: float = 1e-6) -> torch.Tensor:
     """Nonzero mask with a relative threshold (CD paths that differ only in
     stopping order leave ~1e-7 residues on coordinates a stricter run keeps
@@ -69,31 +85,43 @@ def search_alpha(gram: LassoGram, rank: int, rank_tol: float,
     the "bottom" path the exact-count trim (smallest support >= rank,
     dropping its smallest |beta|) or top-up (highest-energy excluded
     channels)."""
-    c = int(gram.G.shape[0])
+    def solve(a: torch.Tensor) -> torch.Tensor:
+        return lasso_cd.cd_solve_grid(gram.G, gram.b, a,
+                                      n_sweeps=n_sweeps).abs()
+
+    return _band_search(solve, gram.G, gram.n_samples, rank, rank_tol,
+                        alpha0, grid_size, max_rounds, prefer)
+
+
+def _band_search(solve, G: torch.Tensor, N: int, rank: int, rank_tol: float,
+                 alpha0: float, grid_size: int, max_rounds: int,
+                 prefer: str) -> tuple[np.ndarray, float, int]:
+    """The host-stepped band search of `search_alpha` and
+    `search_alpha_group`: `solve(alphas * N)` gives each alpha's (A, c)
+    channel magnitudes (|beta|, or B's row norms), whose support is
+    `support_mask` of them and whose order trims the bottom band."""
+    c = int(G.shape[0])
     if rank >= c:
         return np.ones(c, bool), 0.0, c
     lbound = rank
     rbound = rank + (rank_tol if rank_tol >= 1 else rank_tol * rank)
-    N = gram.n_samples
     top = prefer == "top"
 
     alphas = alpha0 * (2.0 ** np.arange(-2, grid_size - 2, dtype=np.float64))
     lo, hi = 0.0, None
     best_cand = None  # (support, mask, alpha) — best in-band seen so far
-    best_over = None  # (support, |beta|, alpha) — smallest support >= rank
+    best_over = None  # (support, magnitudes, alpha) — smallest support >= rank
     refines = 0
     for _ in range(max_rounds):
-        a = torch.as_tensor(alphas * N, dtype=gram.G.dtype).to(gram.G.device)
-        betas = lasso_cd.cd_solve_grid(gram.G, gram.b, a, n_sweeps=n_sweeps)
-        masks = support_mask(betas).cpu().numpy()
+        mags = solve(torch.as_tensor(alphas * N, dtype=G.dtype).to(G.device))
+        masks = support_mask(mags).cpu().numpy()
         supports = masks.sum(axis=1)
         if not top:
             ge = np.where(supports >= lbound)[0]
             if ge.size:
                 gi = ge[supports[ge].argmin()]
                 if best_over is None or supports[gi] < best_over[0]:
-                    best_over = (int(supports[gi]),
-                                 betas[gi].abs().cpu().numpy(),
+                    best_over = (int(supports[gi]), mags[gi].cpu().numpy(),
                                  float(alphas[gi]))
         in_band = np.where((supports >= lbound) & (supports <= rbound))[0]
         if in_band.size:
@@ -140,16 +168,16 @@ def search_alpha(gram: LassoGram, rank: int, rank_tol: float,
         alphas = np.linspace(lo, hi, grid_size + 2, dtype=np.float64)[1:-1]
     if not top and (best_cand is None or best_cand[0] != lbound):
         if best_over is not None:
-            absb, alpha = best_over[1], best_over[2]
+            mag, alpha = best_over[1], best_over[2]
             mask = np.zeros(c, bool)
-            mask[np.argsort(-absb)[:rank]] = True
+            mask[np.argsort(-mag)[:rank]] = True
             return mask, alpha, int(mask.sum())
         dist = np.abs(supports - lbound)
         bi = int(np.argmin(dist))
         mask = masks[bi].copy()
         short = rank - int(mask.sum())
         if short > 0:
-            energy = np.where(mask, -np.inf, torch.diagonal(gram.G).cpu()
+            energy = np.where(mask, -np.inf, torch.diagonal(G).cpu()
                               .numpy().astype(np.float64))
             mask[np.argsort(-energy)[:short]] = True
         return mask, float(alphas[bi]), int(mask.sum())
@@ -385,14 +413,96 @@ def select_channels(X: torch.Tensor, W2: torch.Tensor, Y: torch.Tensor,
     W2: (n, c, kh, kw), Y: (N, n) targets, all on one device. The row
     subsample is numpy's `default_rng(seed).integers`, so both packages use
     the same rows. `fused` searches with `fused_search_alpha`."""
-    N = X.shape[0]
-    n_sub = min(subsample, max(N // 20, 1))
-    rows = np.random.default_rng(seed).integers(0, N, size=n_sub)
-    idx = torch.as_tensor(rows, device=X.device)
-    Xs = X.index_select(0, idx).float()
-    Ys = Y.index_select(0, idx).float()
+    Xs, Ys = row_subsample(X, Y, subsample, seed)
     Z = build_channel_response(Xs, W2.float())
     gram = lasso_gram(Z, Ys.reshape(-1))
     search = fused_search_alpha if fused else search_alpha
     return search(gram, rank, rank_tol, alpha0=alpha0, grid_size=grid_size,
                   max_rounds=max_rounds, n_sweeps=n_sweeps, prefer=prefer)
+
+
+def row_subsample(X: torch.Tensor, Y: torch.Tensor, subsample: int,
+                   seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rows both packages draw: numpy's `default_rng(seed).integers`."""
+    N = X.shape[0]
+    n_sub = min(subsample, max(N // 20, 1))
+    rows = np.random.default_rng(seed).integers(0, N, size=n_sub)
+    idx = torch.as_tensor(rows, device=X.device)
+    return X.index_select(0, idx).float(), Y.index_select(0, idx).float()
+
+
+def select_channels_fixed(X: torch.Tensor, W2: torch.Tensor, Y: torch.Tensor,
+                          alpha: float, *, subsample: int = 400,
+                          seed: int = 0, n_sweeps: int = 200
+                          ) -> tuple[np.ndarray, float, int]:
+    """Fixed-alpha, support-free selection (the reference's autodet mode):
+    one LASSO solve at `alpha` on the row subsample, keeping whatever
+    support comes out. The contract of `select_channels`; the caller
+    computes alpha = alpha0 / c**layeralpha."""
+    Xs, Ys = row_subsample(X, Y, subsample, seed)
+    Z = build_channel_response(Xs, W2.float())
+    gram = lasso_gram(Z, Ys.reshape(-1))
+    beta = cd_solve(gram.G, gram.b, alpha * gram.n_samples, n_sweeps=n_sweeps)
+    mask = support_mask(beta[None, :])[0].cpu().numpy()
+    return mask, float(alpha), int(mask.sum())
+
+
+# ---------------------------------------------------------------------------
+# group (multitask) lasso: the reference's MultiTaskLasso branch for 1x1 and
+# FC consumers, row-sparse B in
+#   min 1/(2N) ||Y - X B||_F^2 + alpha * sum_j ||B_j||_2
+# by block coordinate descent on the Gram system, over a grid of alphas
+# ---------------------------------------------------------------------------
+
+class GroupGram(NamedTuple):
+    G: torch.Tensor     # (c, c)  XᵀX
+    C: torch.Tensor     # (c, n)  XᵀY
+    n_samples: int
+
+
+def group_gram(X: torch.Tensor, Y: torch.Tensor) -> GroupGram:
+    G = X.T @ X
+    return GroupGram(G=(0.5 * (G + G.T)).contiguous(),
+                     C=(X.T @ Y).contiguous(), n_samples=X.shape[0])
+
+
+def group_cd_solve(G: torch.Tensor, C: torch.Tensor, alpha_n: float,
+                   n_sweeps: int = 200, tol: float = 1e-8) -> torch.Tensor:
+    """(c, n) B for one alpha (the JAX package's `group_cd_solve`)."""
+    a = torch.tensor([alpha_n], dtype=torch.float32).to(G.device)
+    return group_cd.group_cd_solve_grid(G, C, a, n_sweeps=n_sweeps,
+                                        tol=tol)[0]
+
+
+def group_row_norms(Bs: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.sum(Bs * Bs, dim=-1))
+
+
+def search_alpha_group(gram: GroupGram, rank: int, rank_tol: float,
+                       alpha0: float = 1e-3, grid_size: int = 16,
+                       max_rounds: int = 8, n_sweeps: int = 200,
+                       prefer: str = "top") -> tuple[np.ndarray, float, int]:
+    """The group-lasso variant of `search_alpha`, as the JAX package's: the
+    same band search, with supports counted on B's row norms (> 1e-6 of the
+    largest) and the bottom band trimmed by them."""
+    def solve(a: torch.Tensor) -> torch.Tensor:
+        return group_row_norms(group_cd.group_cd_solve_grid(
+            gram.G, gram.C, a, n_sweeps=n_sweeps))
+
+    return _band_search(solve, gram.G, gram.n_samples, rank, rank_tol,
+                        alpha0, grid_size, max_rounds, prefer)
+
+
+def select_channels_group(X: torch.Tensor, Y: torch.Tensor, rank: int, *,
+                          alpha0: float = 1e-3, rank_tol: float = 0.1,
+                          subsample: int = 400, seed: int = 0,
+                          grid_size: int = 16, max_rounds: int = 8,
+                          n_sweeps: int = 200, prefer: str = "top"
+                          ) -> tuple[np.ndarray, float, int]:
+    """Group-lasso channel selection for 1x1 and FC consumers: X (N, c[, 1,
+    1]) and Y (N, n) on one device, the row subsample of `select_channels`."""
+    Xs, Ys = row_subsample(X.reshape(X.shape[0], -1), Y, subsample, seed)
+    gram = group_gram(Xs, Ys)
+    return search_alpha_group(gram, rank, rank_tol, alpha0=alpha0,
+                              grid_size=grid_size, max_rounds=max_rounds,
+                              n_sweeps=n_sweeps, prefer=prefer)

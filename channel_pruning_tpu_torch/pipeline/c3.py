@@ -12,10 +12,11 @@ Ported: `preprocess` and `solve_prune`, on chain graphs with the rolling
 frontier and on residual graphs with the DAG frontier, Select gates
 (`input_targets`) and residual compensation; its default is the pipelined
 pass (`_pipelined_conv_pass`, with the fused search), and the sequential
-per-layer loop serves `solve.fused_search=False` and the restart after a
-degenerate layer. `solve_3c` runs the 3C pass (spatial VH, ReLU-aware ITQ
-and the pruning arm) and, with `dic.vh=False`, the 2C pass. Not yet:
-fitfc.
+per-layer loop serves `solve.fused_search=False`, autodet, group lasso on
+graphs with 1x1 convs and the restart after a degenerate layer; with
+`dic.fitfc` the last conv's outputs are then pruned through the first FC
+layer's inputs (`_fitfc_pass`). `solve_3c` runs the 3C pass (spatial VH,
+ReLU-aware ITQ and the pruning arm) and, with `dic.vh=False`, the 2C pass.
 """
 from __future__ import annotations
 
@@ -58,7 +59,8 @@ def preprocess(graph: Graph, params: Mapping[str, Mapping[str, np.ndarray]]
 @dataclass
 class LayerReport:
     conv: str
-    rank: int | None = None
+    rank: int | None = None   # a 3C layer's rank
+    target: int | None = None  # a pruned layer's planned kept count
     kept: int | None = None
     total: int | None = None
     alpha: float = 0.0
@@ -68,7 +70,8 @@ class LayerReport:
     replay_seconds: float = 0.0
     solve_seconds: float = 0.0
     kind: str = "prune"       # "gate": a Select gate in front of the consumer;
-    #                           "3c": a decomposed layer (rMSE VH-only -> final)
+    #                           "3c": a decomposed layer (rMSE VH-only -> final);
+    #                           "fc": the FC consumer of fitfc
     grids: int | None = None  # CD grids the fused search solved
     # a 3C layer's host seconds: spatial and channel stages, and inside them
     # the replay, the host SVDs, the ITQ loop and the checkpoint's wait
@@ -249,18 +252,12 @@ def _residual_context(g_run: Graph, consumer_top: str):
 
 
 def check_supported(graph: Graph, cfg: Config) -> None:
-    """Raise NotImplementedError for options and topologies the port's
-    solve does not run yet."""
-    unported = []
+    """Raise NotImplementedError for options the port's solve does not run
+    yet: only bf16 replays."""
     if cfg.solve.dtype != "float32":
-        unported.append(f"solve.dtype={cfg.solve.dtype} (the port replays in "
-                        "f32 until a parity run on the card proves bf16)")
-    if cfg.solve.autodet:
-        unported.append("solve.autodet")
-    if cfg.dic.fitfc:
-        unported.append("dic.fitfc")
-    if unported:
-        raise NotImplementedError("not ported yet: " + "; ".join(unported))
+        raise NotImplementedError(
+            f"not ported yet: solve.dtype={cfg.solve.dtype} (the port replays "
+            "in f32 until a parity run on the card proves bf16)")
 
 
 def _ground_truth(feats_dev: dict[str, torch.Tensor],
@@ -375,7 +372,7 @@ def _pipelined_conv_pass(g_run: Graph, p_run, dev_run, g_out, p_out,
 
     def drain_one():
         nonlocal g_out, p_out
-        i, consumer, (out, ev), n_in, gate_only, t0 = pending.popleft()
+        i, consumer, (out, ev), n_in, target, gate_only, t0 = pending.popleft()
         if ev is not None:
             ev.synchronize()       # this layer's results are on the host
         keep = out.mask.numpy().astype(bool)
@@ -395,8 +392,8 @@ def _pipelined_conv_pass(g_run: Graph, p_run, dev_run, g_out, p_out,
         dt = time.perf_counter() - t0
         kind = "gate" if gate_only else "prune"
         reports.append(LayerReport(
-            conv=consumer, kept=int(keep.sum()), total=int(n_in),
-            alpha=res.alpha, rmse_before=res.rmse_before,
+            conv=consumer, target=target, kept=int(keep.sum()),
+            total=int(n_in), alpha=res.alpha, rmse_before=res.rmse_before,
             rmse_after=res.rmse_after, seconds=dt, kind=kind,
             grids=int(out.grids)))
         if verbose:
@@ -461,7 +458,7 @@ def _pipelined_conv_pass(g_run: Graph, p_run, dev_run, g_out, p_out,
             print(f"[fenced-diag] {consumer}: advance+gather "
                   f"{diag[-1][0]:.2f}s target-build {diag[-1][1]:.2f}s "
                   f"fused-solve {diag[-1][2]:.2f}s", flush=True)
-        pending.append((i, consumer, host, n_in, gate_only, t0))
+        pending.append((i, consumer, host, n_in, target, gate_only, t0))
         while len(pending) > 1:
             drain_one()
     while pending:
@@ -537,20 +534,25 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
     chunk = sampling.clamp_chunk_for_hbm(
         g_run, cache.batch_size,
         max(cfg.sample.device_batch // cache.batch_size, 1))
-    # the replays never run the FC stack, so its weights stay on the host
-    fcs = set(g_run.fcs)
+    # the replays run the FC stack only under fitfc; otherwise its weights
+    # stay on the host
+    fitfc = bool(cfg.dic.fitfc and channel_targets)
+    fcs = set() if fitfc else set(g_run.fcs)
     dev_run = params_to_torch({k: v for k, v in p_run.items() if k not in fcs},
                               device)
     feats_dev: dict[str, torch.Tensor] = {}   # ground truth, uploaded once
     roll = _maybe_rolling(g_run, cache, device)
 
     # the fused single-task solve cannot serve a 1x1 consumer under group
-    # lasso (select_and_reconstruct routes those to the group path)
+    # lasso (select_and_reconstruct routes those to the group path), nor
+    # autodet's one fixed-alpha solve: both take the sequential path
     grpl_block = cfg.dic.grplasso and any(
         g_run.layer(c).conv_geometry()["kh"]
         * g_run.layer(c).conv_geometry()["kw"] == 1 for c in g_run.convs)
+    pipelined = False
     if (not no_pipeline and roll is not None and cfg.solve.fused_search
-            and not grpl_block and (channel_targets or input_targets)):
+            and not grpl_block and not cfg.solve.autodet
+            and (channel_targets or input_targets)):
         try:
             g_out, p_out = _pipelined_conv_pass(
                 g_run, p_run, dev_run, g_out, p_out, selections, reports,
@@ -567,15 +569,11 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
                                residual_compensate=residual_compensate,
                                device=device, checkpoint=checkpoint,
                                verbose=verbose, _no_pipeline=True)
-        if checkpoint is not None:
-            checkpoint.clear()
-        return SolveResult(graph=g_out, params=p_out, reports=reports,
-                           selections=selections,
-                           frontier_fallbacks=frontier_fallbacks,
-                           pipelined=True)
+        pipelined = True
 
-    for i, consumer, bottom, target, gate_only in _layer_items(
-            g_run, p_run, channel_targets, input_targets, resume_i):
+    items = [] if pipelined else _layer_items(g_run, p_run, channel_targets,
+                                              input_targets, resume_i)
+    for i, consumer, bottom, target, gate_only in items:
         n_in = p_run[consumer]["W"].shape[1]
         t0 = time.perf_counter()
         X = _patches(roll, g_run, dev_run, cache, consumer, device, chunk,
@@ -618,7 +616,8 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
             grid_size=cfg.lasso.grid_size, max_rounds=cfg.lasso.max_rounds,
             ridge=cfg.solve.ls_ridge, seed=cfg.sample.seed,
             group=cfg.dic.grplasso, prefer=cfg.solve.band,
-            fused=cfg.solve.fused_search)
+            fused=cfg.solve.fused_search, autodet=cfg.solve.autodet,
+            layeralpha=cfg.dic.layeralpha)
         t_end = time.perf_counter()
 
         # running graph: zero-scattered reconstruction (static shapes)
@@ -630,8 +629,8 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
             g_out, p_out, consumer, res, shrink_producer=not gate_only)
         selections[consumer] = res.keep
         reports.append(LayerReport(
-            conv=consumer, kept=int(res.keep.sum()), total=int(n_in),
-            alpha=res.alpha, rmse_before=res.rmse_before,
+            conv=consumer, target=int(target), kept=int(res.keep.sum()),
+            total=int(n_in), alpha=res.alpha, rmse_before=res.rmse_before,
             rmse_after=res.rmse_after, seconds=t_end - t0,
             replay_seconds=t_solve - t0, solve_seconds=t_end - t_solve,
             kind="gate" if gate_only else "prune"))
@@ -648,9 +647,79 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
                                       "frontier_fallbacks": frontier_fallbacks})
     if checkpoint is not None:
         checkpoint.clear()
+    if fitfc:
+        g_out, p_out = _fitfc_pass(g_run, p_run, dev_run, g_out, p_out,
+                                   selections, reports, cache, cfg,
+                                   channel_targets, device, chunk, verbose)
     return SolveResult(graph=g_out, params=p_out, reports=reports,
                        selections=selections,
-                       frontier_fallbacks=frontier_fallbacks)
+                       frontier_fallbacks=frontier_fallbacks,
+                       pipelined=pipelined)
+
+
+def _fitfc_pass(g_run: Graph, p_run, dev_run, g_out: Graph, p_out,
+                selections, reports, cache: sampling.FrozenCache, cfg: Config,
+                channel_targets, device, chunk: int, verbose: bool):
+    """fitfc (the reference's dic.fitfc): prune the last conv's outputs
+    through the first FC layer's inputs. The FC's input is captured densely
+    (one row per image) from the pruned running net, its weight is viewed
+    channel-major (out, C, H, W), and `select_and_reconstruct(group=True)`
+    selects C's channels (the group lasso when H·W == 1, the single-task
+    search otherwise) and refits the FC on all images. The producer conv
+    shrinks and the FC's weight columns are sliced to match."""
+    for fc in g_run.fcs:
+        bottom = g_run.layer(fc).bottoms[0]
+        producer = prune_mod.producer_conv(g_run, bottom)
+        target = channel_targets.get(producer) if producer else None
+        if target is None:
+            continue
+        t0 = time.perf_counter()
+        dense = sampling.sample_dense(g_run, dev_run, cache.inputs, (bottom,),
+                                      device=device,
+                                      chunk_batches=chunk)[bottom]
+        Wfc = np.asarray(p_run[fc]["W"], np.float32)
+        n_in = dense.shape[1]
+        Wr = Wfc.reshape(Wfc.shape[0], n_in, *dense.shape[2:])
+        if target >= n_in:
+            continue
+        bfc = np.asarray(p_run[fc].get("b", np.zeros(Wfc.shape[0])),
+                         np.float32)
+        Y = torch.as_tensor(np.asarray(cache.feats[g_run.layer(fc).tops[0]],
+                                       np.float32) - bfc).to(device)
+        t_solve = time.perf_counter()
+        res = prune_mod.select_and_reconstruct(
+            dense, Wr, Y, int(target), rank_tol=cfg.dic.rank_tol,
+            alpha0=cfg.solve.alpha, subsample=cfg.lasso.subsample_rows,
+            n_sweeps=cfg.lasso.n_sweeps, grid_size=cfg.lasso.grid_size,
+            max_rounds=cfg.lasso.max_rounds, ridge=cfg.solve.ls_ridge,
+            seed=cfg.sample.seed, group=True, prefer=cfg.solve.band)
+        t_end = time.perf_counter()
+        # running graph: zero-scatter back into the flat FC weight
+        p_run[fc] = {"W": _scatter_inputs(res.W, res.keep).reshape(Wfc.shape),
+                     "b": res.b}
+        dev_run[fc] = params_to_torch({fc: p_run[fc]}, device)[fc]
+        # output graph: shrink the producer conv and slice the FC weight
+        if producer is not None and prune_mod._sole_consumer_chain(
+                g_out, producer, fc):
+            g_out, p_out = rewrite.prune_conv_outputs(g_out, p_out, producer,
+                                                      res.keep)
+            p_out[fc] = dict(p_out[fc])
+            p_out[fc]["W"] = res.W.reshape(Wfc.shape[0], -1)
+            p_out[fc]["b"] = res.b
+        selections[fc] = res.keep
+        reports.append(LayerReport(
+            conv=fc, target=int(target), kept=int(res.keep.sum()),
+            total=int(n_in), alpha=res.alpha, rmse_before=res.rmse_before,
+            rmse_after=res.rmse_after, seconds=t_end - t0,
+            replay_seconds=t_solve - t0, solve_seconds=t_end - t_solve,
+            kind="fc"))
+        if verbose:
+            print(f"[fitfc] {fc}: keep {int(res.keep.sum())}/{n_in} rMSE "
+                  f"{res.rmse_before:.4f}->{res.rmse_after:.4f} "
+                  f"({t_end - t0:.2f}s = dense capture {t_solve - t0:.2f} + "
+                  f"solve {t_end - t_solve:.2f})", flush=True)
+        break  # only the first FC consumes conv channels
+    return g_out, p_out
 
 
 # ---------------------------------------------------------------------------
@@ -901,7 +970,8 @@ def _solve_3c(graph, params, cache, cfg, ranks, skip, device, checkpoint,
                 n_sweeps=cfg.lasso.n_sweeps, grid_size=cfg.lasso.grid_size,
                 max_rounds=cfg.lasso.max_rounds, ridge=cfg.solve.ls_ridge,
                 seed=cfg.sample.seed, group=cfg.dic.grplasso,
-                prefer=cfg.solve.band, fused=cfg.solve.fused_search)
+                prefer=cfg.solve.band, fused=cfg.solve.fused_search,
+                autodet=cfg.solve.autodet, layeralpha=cfg.dic.layeralpha)
             t_prune = time.perf_counter() - t2
             p_run[convnext] = {"W": _scatter_inputs(res.W, res.keep),
                                "b": res.b}

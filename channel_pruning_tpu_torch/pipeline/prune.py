@@ -5,8 +5,9 @@ subsample (ops/lasso), least-squares reconstruction of the surviving
 weights on all rows (ops/lstsq), and installation into the output graph by
 pure graph rewrites (graph/rewrite.py). Single-task selection, with the
 host-stepped search or the fused whole-layer solve (`_fused_layer_solve`,
-device tensors only); the group-lasso, alternating-refinement and autodet
-paths are not ported yet and raise.
+device tensors only); the row-sparse group lasso on 1x1 and FC consumers;
+the fixed-alpha selection of the reference's autodet mode; and the
+alternating LASSO <-> least-squares refinement (`alter_iters`).
 """
 from __future__ import annotations
 
@@ -122,7 +123,8 @@ def select_and_reconstruct(X: torch.Tensor, W2: np.ndarray, Y: torch.Tensor,
                            alter_iters: int = 0, prefer: str = "top",
                            fused: bool = False,
                            pad_to: tuple[int, int] | None = None,
-                           autodet: bool = False) -> PruneResult:
+                           autodet: bool = False,
+                           layeralpha: float = 1.0) -> PruneResult:
     """One layer's LASSO selection + lstsq reconstruction.
 
     X: (N, c, kh, kw) consumer input patches of the current net and
@@ -130,17 +132,27 @@ def select_and_reconstruct(X: torch.Tensor, W2: np.ndarray, Y: torch.Tensor,
     solve device; W2: (n, c, kh, kw) consumer weights. `fused` runs the
     whole-layer solve `_fused_layer_solve` (an empty selection falls
     through to the generic path's magnitude fallback); `pad_to` (c_pad,
-    n_pad) zero-pads its inputs first, which leaves the selection alone."""
+    n_pad) zero-pads its inputs first, which leaves the selection alone.
+
+    `group=True` selects a 1x1 (kh·kw == 1) consumer's channels with the
+    row-sparse group lasso on the (N, c) design instead of the summed
+    single-task form; on any other consumer it changes nothing.
+    `alter_iters` runs the alternating LASSO <-> least-squares refinement.
+    `autodet=True` solves the LASSO once at alpha0 / c**layeralpha and keeps
+    whatever support falls out: `rank` then only sizes the magnitude
+    fallback of an empty selection."""
     N, c, kh, kw = X.shape
-    if autodet or alter_iters or (group and kh * kw == 1):
-        raise NotImplementedError(
-            "only single-task selection is ported; autodet, alternating "
-            "refinement and group lasso are not")
+    if autodet:
+        fused = False       # one fixed-alpha solve: no band search, and
+        alter_iters = 0     # no refinement
+    # the group form applies to 1x1 consumers only, so `group` on a k > 1
+    # conv keeps the fused path
+    group_active = group and kh * kw == 1
     rank = int(min(max(rank, 1), c))
     Xd = X.float()
     Yd = Y.float()
     W2d = torch.as_tensor(np.asarray(W2, np.float32), device=Xd.device)
-    if fused and rank < c:
+    if fused and not group_active and not alter_iters and rank < c:
         n_sub = min(subsample, max(N // 20, 1))
         rows = np.random.default_rng(seed).integers(0, N, size=n_sub)
         Xp, Yp, W2p = Xd, Yd, W2d
@@ -164,20 +176,38 @@ def select_and_reconstruct(X: torch.Tensor, W2: np.ndarray, Y: torch.Tensor,
                 rmse_after=float(out.rmse_after), grids=int(out.grids))
     rmse_before = _rel_error(Xd, W2d, 0.0, Yd)
 
-    if rank >= c:
+    if rank >= c and not autodet:
         keep = np.ones(c, bool)
         alpha = 0.0
     else:
-        keep, alpha, _ = lasso.select_channels(
-            Xd, W2d, Yd, rank, alpha0=alpha0, rank_tol=rank_tol,
-            subsample=subsample, seed=seed, grid_size=grid_size,
-            max_rounds=max_rounds, n_sweeps=n_sweeps, prefer=prefer,
-            fused=fused)
+        if autodet:
+            keep, alpha, _ = lasso.select_channels_fixed(
+                Xd, W2d, Yd, alpha0 / c ** layeralpha, subsample=subsample,
+                seed=seed, n_sweeps=n_sweeps)
+        elif group_active:
+            keep, alpha, _ = lasso.select_channels_group(
+                Xd.reshape(N, -1), Yd, rank, alpha0=alpha0,
+                rank_tol=rank_tol, subsample=subsample, seed=seed,
+                grid_size=grid_size, max_rounds=max_rounds,
+                n_sweeps=n_sweeps, prefer=prefer)
+        else:
+            keep, alpha, _ = lasso.select_channels(
+                Xd, W2d, Yd, rank, alpha0=alpha0, rank_tol=rank_tol,
+                subsample=subsample, seed=seed, grid_size=grid_size,
+                max_rounds=max_rounds, n_sweeps=n_sweeps, prefer=prefer,
+                fused=fused)
         if keep.sum() == 0:
             # degenerate layer (LASSO kills everything at every probed
             # alpha): magnitude selection keeps the graph well-formed
             keep = magnitude_select(W2, rank)
             alpha = float("nan")
+        if alter_iters and np.isfinite(alpha):
+            refined = _alternate_refine(Xd, W2d, Yd, keep, rank, rank_tol,
+                                        alpha, alter_iters,
+                                        subsample=subsample, seed=seed,
+                                        n_sweeps=n_sweeps)
+            if refined is not None and refined.sum() > 0:
+                keep = refined
 
     # least squares on the surviving channels over ALL rows
     keep_idx = torch.as_tensor(np.where(keep)[0], device=Xd.device)
@@ -267,3 +297,36 @@ def _sole_consumer_chain(graph: Graph, prod: str, consumer: str) -> bool:
             else:
                 return False
     return True
+
+
+def _alternate_refine(X: torch.Tensor, W2: torch.Tensor, Y: torch.Tensor,
+                      keep: np.ndarray, rank: int, rank_tol: float,
+                      alpha0: float, iters: int, *, subsample: int = 400,
+                      seed: int = 0, n_sweeps: int = 200) -> np.ndarray | None:
+    """Alternating LASSO <-> least-squares refinement of a selection, as
+    the JAX package's `_alternate_refine`: refit the consumer on the
+    current support (row subsample), rebuild the per-channel responses with
+    the refit weights, and search again for the same support size from the
+    last alpha. Returns the refined mask (None if the support emptied)."""
+    _, c, kh, kw = X.shape
+    n = W2.shape[0]
+    Xs, Ys = lasso.row_subsample(X, Y, subsample, seed)
+    cur = np.asarray(keep, bool)
+    for _ in range(iters):
+        if cur.sum() == 0:
+            return None
+        cur_idx = torch.as_tensor(np.where(cur)[0], device=X.device)
+        Wk, _ = lstsq.fit_linear(
+            Xs.index_select(1, cur_idx).reshape(Xs.shape[0], -1), Ys)
+        W2p = torch.zeros((n, c, kh, kw), dtype=torch.float32,
+                          device=X.device)
+        W2p[:, cur_idx] = Wk.reshape(n, int(cur.sum()), kh, kw)
+        Z = lasso.build_channel_response(Xs, W2p)
+        gram = lasso.lasso_gram(Z, Ys.reshape(-1))
+        new, alpha0, _ = lasso.search_alpha(gram, rank, rank_tol,
+                                            alpha0=max(alpha0, 1e-6),
+                                            n_sweeps=n_sweeps)
+        if new.sum() == 0:
+            return cur
+        cur = np.asarray(new, bool)
+    return cur

@@ -6,6 +6,8 @@ channel_pruning_tpu/sampling/sampler.py).
   vectors on the device as each tensor is produced;
 * `sample_patches`: replay the current graph up to a conv's bottom and
   gather its (N, c, kh, kw) input patches at the planned output points;
+* `sample_dense`: replay and capture whole tensors, one row per image (the
+  inputs of an FC consumer, for fitfc);
 * `FrozenCache`: the npz layout of the JAX package, so a cache frozen there
   loads here.
 
@@ -119,6 +121,23 @@ def sample_patches(graph: Graph, params, inputs, conv: str,
                 v, ys, xs, *kern)})
         outs.append(caps[bottom])
     return torch.cat(outs, dim=0)
+
+
+def sample_dense(graph: Graph, params, inputs, tensors: Sequence[str], *,
+                 device, chunk_batches: int = 25) -> dict[str, torch.Tensor]:
+    """Capture whole tensors, one row per image: {t: (n_images, ...)},
+    left on `device` (the inputs of an FC consumer under fitfc). Chunked
+    as `sample_features` is."""
+    tensors = tuple(tensors)
+    input_name = graph.inputs[0].name
+    sub = graph.ancestors_subgraph(tensors)
+    outs: dict[str, list[torch.Tensor]] = {t: [] for t in tensors}
+    for lo, hi in _chunk_iter(inputs.shape[0], chunk_batches):
+        x = device_chunk(inputs, lo, hi, device)
+        _, caps = run_graph(sub, params, {input_name: x}, capture=tensors)
+        for t in tensors:
+            outs[t].append(caps[t])
+    return {t: torch.cat(v, dim=0) for t, v in outs.items()}
 
 
 @dataclass

@@ -6,8 +6,10 @@ NVIDIA card:
 
 Phases, each printing its own lines; any failure raises (exit code != 0):
   1. the card: torch.cuda must be available; nvidia-smi name and power limit;
-  2. build the LASSO CD kernels K1 and K2 (csrc/lasso_cd.cu) from the
-     checkout, and print ptxas's registers / shared memory per kernel;
+  2. build the LASSO CD kernels K1 and K2 (csrc/lasso_cd.cu) and the group
+     lasso's block CD kernel K3 (csrc/group_cd.cu) from the checkout, one
+     nvcc a source side by side, and print ptxas's registers / shared
+     memory per kernel;
   3. K1 against its plain PyTorch version on the card at c = 256 and
      c = 512 with a 16-alpha grid (the search's grid) over the full 200
      sweeps: identical supports, max|K1-plain| = 0, the same sweeps and
@@ -20,12 +22,22 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
   3b. the same for K2 at c = 2048 and c = 4096 (1x1 patches, the shape of
      a res5 gate), against the plain version over 3 sweeps (a full plain
      grid at c = 2048 takes about a minute), timed over 3 and 200 sweeps;
+  3c. K3 against its plain version on seeded 1x1-consumer problems, 16
+     alphas: (c, n) = (256, 256) over 200 sweeps, (2048, 512) and (512,
+     2048) (ResNet-50's res5 shapes) over 3: identical row supports and B
+     within 1e-5 of max|B|; K3 timed with CUDA events beside its sweeps,
+     moving rows and bound, the plain version at (256, 256);
   4. the tiny VGG and the tiny ResNet (Select gates, residual compensation,
      DAG frontier, band=bottom) through the default pipelined pass on the
      card and on the CPU, and the sequential pass on the card: identical
      selections, and the pipelined pass runs to its end;
   4b. the tiny VGG through 3C (VH, ITQ and the pruning arm, full schedules)
      on the card and on the CPU: the same structure and selections;
+  4c. `cli prune --model tiny_resnet --speed 1.2 --set dic.grplasso=true` on
+     the card and on the CPU (the sequential path; the 1x1 consumers on
+     K3): identical selections; and 4b with dic.grplasso on the tiny VGG
+     with conv3_1 cut to 1x1 and left undecomposed, so that conv2_2's arm
+     prunes a 1x1 consumer by group lasso (K3 launched on the card);
   5. the main path, `cli prune --model vgg16 --mode prune --speed 5.0
      --device cuda` with its defaults (the pipelined pass with the fused
      search; 50 x 10 synthetic calibration images, random He-init weights):
@@ -85,10 +97,33 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
      gives probabilities (their held-out cross-entropy is printed);
   8. `cli addbn` on the 3C 4x export of 5d, then one `cli finetune` step
      with clip 35: the BN count, and a finite loss;
-  9. with --profile only: each main path (the 3C path too) once more under
-     torch.profiler, with the device's busy time, idle share, the CD
-     kernels' share and the top kernels.
-The next-to-last line is a JSON record of the kernels; the last line is
+  9. with --profile only: each main path (the 3C, Xception and
+     Faster-RCNN paths too) once more under torch.profiler, with the device's busy time, idle
+     share, the CD kernels' share and the top kernels;
+  10. `cli prune --model xception --mode prune --speed 2.0` at 224² with
+     its defaults (the pipelined pass, DAG frontier): no restart and no
+     host sync in any layer's dispatch, every consumer's kept count in
+     [t, round(1.1 t)] of its planned target, conv mults at least 0.97 of
+     the planner's prediction, K1 and K2 (exit_sep4_pw, c = 1536) launched,
+     the export reloads and gives probabilities; the depthwise convs
+     shrunk, the Select gates, the wall split and the peak memory printed;
+  11. `cli prune --model frcnn_vgg16 --image-size 600 --speed 5.0`: the
+     calibration set's activations outgrow the frontier's 8 GB budget, so
+     the sequential path replays from the input for every layer, at the
+     images a step `clamp_chunk_for_hbm` allows: the same band and ratio
+     checks, the RPN convs pruned, the export reloads with finite outputs;
+     the split of the solve (replays, solves, the host's draws of the
+     synthetic images and their copies) printed;
+  12. `cli prune --model vgg16 --speed 4.0 --set dic.fitfc=true`: the
+     pipelined conv pass, then conv5_3 pruned through fc6 (a dense capture,
+     the single-task search on K1 over 7x7 patches, the refit of fc6 on
+     kept x 49 columns): conv5_3's width equals fc6's kept count, fc6's
+     weight columns are sliced to match, the export gives probabilities;
+  13. `cli prune --model vgg16 --speed 5.0 --set solve.autodet=true`: the
+     sequential path with one fixed-alpha LASSO a layer (K1 once a layer),
+     every keep count above 0, the export reloads.
+The next-to-last line is a JSON record of the kernels (K1, K2, K3, with
+launches per path); the last line is
 {"ok": true, "device": {...}}. Nothing of JAX or of the JAX package is
 imported here, nor by the port: it has its own copies of the numpy modules
 (graph IR, Caffe codec, models, config, FLOPs).
@@ -108,6 +143,21 @@ ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "work" / "chip_smoke"      # .gitignore lists work/
 TINY_TARGETS = {"conv1_1": 5, "conv1_2": 6, "conv2_1": 8, "conv2_2": 9,
                 "conv3_1": 10}
+
+
+def _zero_launches() -> None:
+    """Set every kernel's launch count to 0 (just before a main path)."""
+    from channel_pruning_tpu_torch.kernels import group_cd, lasso_cd
+
+    lasso_cd.LAUNCHES = lasso_cd.LAUNCHES_STREAM = group_cd.LAUNCHES = 0
+
+
+def _launches() -> dict:
+    """Every kernel's launch count since `_zero_launches` (K1, K2, K3)."""
+    from channel_pruning_tpu_torch.kernels import group_cd, lasso_cd
+
+    return {"k1": lasso_cd.LAUNCHES, "k2": lasso_cd.LAUNCHES_STREAM,
+            "k3": group_cd.LAUNCHES}
 
 
 def _card_line() -> str:
@@ -385,46 +435,65 @@ def phase_tiny_resnet(device) -> None:
     print(f"[tiny_resnet] {gates} Select gates", flush=True)
 
 
-def phase_tiny_3c(device) -> None:
+def phase_tiny_3c(device, grplasso: bool = False) -> dict:
     """The tiny VGG through 3C (every conv after the first decomposed at
     the CLI's rank, the full ALS/ITQ schedules, the arms on the fused
-    search) on the card and on the CPU: the same structure and selections."""
+    search) on the card and on the CPU: the same structure and selections.
+    With `grplasso`, conv3_1 is cut to its centre tap (1x1) and left
+    undecomposed, so conv2_2's arm prunes a 1x1 consumer by group lasso:
+    K3 must launch on the card. Returns the card run's launches."""
     import torch
 
     from channel_pruning_tpu_torch.convert import params_to_torch
-    from channel_pruning_tpu_torch.graph.rewrite import split_relu
+    from channel_pruning_tpu_torch.graph.rewrite import set_conv, split_relu
     from channel_pruning_tpu_torch.models.vgg import build_tiny_vgg
     from channel_pruning_tpu_torch.pipeline import c3
     from channel_pruning_tpu_torch.sampling import sampler
     from channel_pruning_tpu_torch.utils.config import default_config
 
+    label = "tiny_3c_grplasso" if grplasso else "tiny_3c"
     g, params = build_tiny_vgg(batch=4, image_size=16)
+    cfg = default_config()
+    if grplasso:
+        g, params = set_conv(g, params, "conv3_1",
+                             W=params["conv3_1"]["W"][:, :, 1:2, 1:2],
+                             pad_h=0, pad_w=0)
+        cfg = cfg.replace_nested("dic.grplasso", True)
     g = split_relu(g)
     inputs = np.random.default_rng(7).normal(0, 1, (8, 4, 3, 16, 16)).astype(np.float32)
-    ranks = {c: int(g.layer(c).attr("num_output")) for c in g.convs[1:]}
+    ranks = {c: int(g.layer(c).attr("num_output")) for c in g.convs[1:]
+             if not (grplasso and c == "conv3_1")}
     runs = {}
     for name, dev in (("card", device), ("cpu", torch.device("cpu"))):
         cache = sampler.freeze(g, params_to_torch(params, dev), inputs,
                                device=dev, n_points=10, seed=0, chunk_batches=4)
-        runs[name] = c3.solve_3c(g, params, cache, default_config(), ranks,
+        _zero_launches()
+        runs[name] = c3.solve_3c(g, params, cache, cfg, ranks,
                                  device=dev, verbose=False)
+        if name == "card":
+            launches = _launches()
     card, cpu = runs["card"], runs["cpu"]
     shapes = [{l.name: r.params[l.name]["W"].shape for l in r.graph.layers
                if l.type == "Convolution"} for r in (card, cpu)]
     if shapes[0] != shapes[1]:
-        raise AssertionError(f"tiny 3C structure differs: {shapes}")
+        raise AssertionError(f"{label} structure differs: {shapes}")
     sel = (card.selections, cpu.selections)
     if sel[0].keys() != sel[1].keys() or any(
             not np.array_equal(sel[0][k], sel[1][k]) for k in sel[1]):
-        raise AssertionError(f"tiny 3C selections differ: {sel}")
+        raise AssertionError(f"{label} selections differ: {sel}")
     if card.itq_degraded or card.undecomposed:
-        raise AssertionError(f"tiny 3C on the card: VH-only {card.itq_degraded}, "
+        raise AssertionError(f"{label} on the card: VH-only {card.itq_degraded}, "
                              f"untouched {card.undecomposed}")
+    if grplasso and not (launches["k3"] > 0 and "conv3_1" in sel[0]):
+        raise AssertionError(f"{label}: K3 launches {launches['k3']}, arms "
+                             f"{sorted(sel[0])}")
     worst = max(abs(a.rmse_after - b.rmse_after) / max(b.rmse_after, 1e-12)
                 for a, b in zip(card.reports, cpu.reports))
-    print(f"[tiny_3c] 3C on the card and on the CPU: the same {len(shapes[0])} "
+    print(f"[{label}] 3C on the card and on the CPU: the same {len(shapes[0])} "
           f"convs and shapes and the same selections in {len(sel[1])} arms; "
-          f"largest relative rMSE difference {worst:.2e}", flush=True)
+          f"largest relative rMSE difference {worst:.2e}; card launches "
+          f"K1 {launches['k1']} K3 {launches['k3']}", flush=True)
+    return launches
 
 
 def _prune(model: str, speed: str, work: Path, *extra: str, mode: str = "prune"):
@@ -451,10 +520,12 @@ def _check_pipelined(label: str, res) -> None:
 
     if not c3.CHECK_DISPATCH_SYNC:
         raise AssertionError("the dispatch sync check is off")
-    if not res.pipelined or any(r.grids is None for r in res.reports):
+    # fitfc's FC report comes after the pass, from no grid search
+    convs = [r for r in res.reports if r.kind != "fc"]
+    if not res.pipelined or any(r.grids is None for r in convs):
         raise AssertionError(f"{label}: the pipelined pass did not run to "
                              "its end")
-    grids = [r.grids for r in res.reports]
+    grids = [r.grids for r in convs]
     print(f"[{label}] pipelined pass ran to its end, no restart; every "
           f"layer's dispatch passed set_sync_debug_mode('error'); CD grids "
           f"solved per layer min/median/max {_spread(grids)}, total "
@@ -518,17 +589,16 @@ def _gives_probabilities(prob) -> bool:
 def phase_main_path(device):
     import torch
 
-    from channel_pruning_tpu_torch.kernels import lasso_cd
     from channel_pruning_tpu_torch.models.vgg import build_vgg16
     from channel_pruning_tpu_torch.utils.flops import total_flops
 
     work = WORK / "vgg16"
     torch.cuda.reset_peak_memory_stats(device)
-    lasso_cd.LAUNCHES = lasso_cd.LAUNCHES_STREAM = 0
+    _zero_launches()
     t0 = time.perf_counter()
     res = _prune_vgg16(work)
     wall = time.perf_counter() - t0
-    launches = {"k1": lasso_cd.LAUNCHES, "k2": lasso_cd.LAUNCHES_STREAM}
+    launches = _launches()
     peak = torch.cuda.max_memory_allocated(device)
 
     _check_pipelined("main", res)
@@ -618,17 +688,16 @@ def phase_resnet50(device):
     """The ResNet-50 2x main path through the CLI with its defaults."""
     import torch
 
-    from channel_pruning_tpu_torch.kernels import lasso_cd
     from channel_pruning_tpu_torch.models.resnet import build_resnet50
     from channel_pruning_tpu_torch.utils.flops import total_flops
 
     work = WORK / "resnet50"
     torch.cuda.reset_peak_memory_stats(device)
-    lasso_cd.LAUNCHES = lasso_cd.LAUNCHES_STREAM = 0
+    _zero_launches()
     t0 = time.perf_counter()
     res = _prune_resnet50(work)
     wall = time.perf_counter() - t0
-    launches = {"k1": lasso_cd.LAUNCHES, "k2": lasso_cd.LAUNCHES_STREAM}
+    launches = _launches()
     peak = torch.cuda.max_memory_allocated(device)
 
     _check_pipelined("resnet50", res)
@@ -666,7 +735,6 @@ def phase_vgg16_3c(device):
     import torch
 
     from channel_pruning_tpu_torch import cli
-    from channel_pruning_tpu_torch.kernels import lasso_cd
     from channel_pruning_tpu_torch.models.vgg import build_vgg16
     from channel_pruning_tpu_torch.pipeline import c3
     from channel_pruning_tpu_torch.utils.config import default_config
@@ -674,7 +742,7 @@ def phase_vgg16_3c(device):
 
     work = WORK / "vgg16_3c"
     torch.cuda.reset_peak_memory_stats(device)
-    lasso_cd.LAUNCHES = lasso_cd.LAUNCHES_STREAM = 0
+    _zero_launches()
     real_solve, syncs = c3.solve_3c, []
 
     def counted_solve(*a, **kw):
@@ -696,7 +764,7 @@ def phase_vgg16_3c(device):
     finally:
         c3.solve_3c = real_solve
     wall = time.perf_counter() - t0
-    launches = {"k1": lasso_cd.LAUNCHES, "k2": lasso_cd.LAUNCHES_STREAM}
+    launches = _launches()
     peak = torch.cuda.max_memory_allocated(device)
 
     failures = []
@@ -1136,11 +1204,9 @@ def _heldout_xent(device, prefix: Path, val: Path) -> float:
 
 def phase_accuracy_loop(device, seed: int) -> dict:
     """The accuracy loop on the card: see the module docstring, phase 7."""
-    from channel_pruning_tpu_torch.kernels import lasso_cd
-
-    lasso_cd.LAUNCHES = lasso_cd.LAUNCHES_STREAM = 0
+    _zero_launches()
     res = accuracy_loop(WORK / "digits", seed, str(device))
-    res["launches"] = {"k1": lasso_cd.LAUNCHES, "k2": lasso_cd.LAUNCHES_STREAM}
+    res["launches"] = _launches()
     print(f"[accuracy] seeded task (seed {seed}; {TASK}; {' '.join(TASK_PRUNE)}): "
           + ", ".join(f"{k} top-1 {res[k]:.4f} (held-out cross-entropy "
                       f"{res[k + '_xent']:.5f})"
@@ -1179,6 +1245,446 @@ def phase_addbn_3c(device) -> dict:
     return {"bn_layers": n_bn, "loss": loss}
 
 
+def _group_problem(seed: int, c: int, n: int, device, rows: int = 250):
+    """A 1x1 consumer's group-lasso Gram at main-path shape: the 250-row
+    subsample of post-ReLU inputs against He-init weights, and a 16-alpha
+    geometric grid below the alpha that zeroes every row."""
+    import torch
+
+    from channel_pruning_tpu_torch.ops import lasso
+
+    rng = np.random.default_rng(seed)
+    X = np.maximum(rng.normal(size=(rows, c)), 0).astype(np.float32)
+    W = (rng.normal(size=(c, n)) * np.sqrt(2.0 / c)).astype(np.float32)
+    Y = (X @ W + 0.05 * rng.normal(size=(rows, n))).astype(np.float32)
+    gram = lasso.group_gram(torch.from_numpy(X).to(device),
+                            torch.from_numpy(Y).to(device))
+    a_max = float(torch.linalg.vector_norm(gram.C, dim=1).max()) / rows
+    alphas = torch.as_tensor(np.geomspace(1e-3 * a_max, a_max, A_GRID) * rows,
+                             dtype=torch.float32).to(device)
+    return gram, alphas
+
+
+def _group_bound(c: int, n: int, n_alpha: int, stats) -> dict:
+    """The least time a K3 grid could take for this run's work: G, C and
+    the alphas read once, B written once; 8n FLOPs a row visit (R_j, its
+    squared norm, the new row, its delta and the running max) and cn a
+    sweep (max|B|), 2cn a moving row (Q's update), from the sweeps and
+    moving rows these inputs needed (the kernel's stats)."""
+    sweeps = stats[:, 0].astype(np.int64)
+    moves = stats[:, 1].astype(np.int64)
+    flops = int((sweeps * 9 * c * n + moves * 2 * c * n).sum())
+    nbytes = 4 * (c * c + c * n + n_alpha + n_alpha * c * n)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return {"flops": flops, "bytes": nbytes,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def phase_group_vs_plain(device) -> dict:
+    """K3 against its plain version on seeded 1x1-consumer problems: (c, n)
+    = (256, 256) over the full 200 sweeps, and ResNet-50's res5 shapes
+    (2048, 512) and (512, 2048) over 3 sweeps, 16 alphas each: identical
+    row supports and B within 1e-5 of max|B| (the kernel sums a row's
+    squares in another order); K3 alone timed with CUDA events beside the
+    sweeps, moving rows and bound; the plain version timed at (256, 256).
+    The returned numbers are those at (256, 256), the others beside them."""
+    import torch
+
+    from channel_pruning_tpu_torch.kernels import group_cd
+    from channel_pruning_tpu_torch.ops import lasso
+
+    def supports(Bs):
+        norms = lasso.group_row_norms(Bs)
+        return norms > 1e-6 * norms.amax(dim=1, keepdim=True)
+
+    out, A = {}, A_GRID
+    for seed, (c, n, sweeps, reps) in enumerate(((256, 256, 200, 3),
+                                                 (2048, 512, 3, 2),
+                                                 (512, 2048, 3, 2))):
+        gram, alphas = _group_problem(seed, c, n, device)
+        stats = torch.zeros((A, 2), dtype=torch.int32, device=device)
+        before = group_cd.LAUNCHES
+        got = group_cd.group_cd_solve_grid(gram.G, gram.C, alphas,
+                                           n_sweeps=sweeps, stats=stats)
+        if group_cd.LAUNCHES != before + 1:
+            raise AssertionError(f"K3 ({c}, {n}): not launched once")
+        plain_ms, ref = _time_ms(lambda: group_cd.group_cd_solve_grid_plain(
+            gram.G, gram.C, alphas, n_sweeps=sweeps), 1)
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        if not torch.equal(supports(got), supports(ref)):
+            raise AssertionError(f"K3 ({c}, {n}): row supports differ from "
+                                 "the plain version's")
+        if not err <= 1e-5 * scale:
+            raise AssertionError(f"K3 ({c}, {n}): max|K3-plain| {err} > "
+                                 f"1e-5 * max|B| {scale}")
+        ms, _ = _time_ms(lambda: group_cd.group_cd_solve_grid(
+            gram.G, gram.C, alphas, n_sweeps=sweeps), reps)
+        st = stats.cpu().numpy()
+        bound = _group_bound(c, n, A, st)
+        print(f"[kernel] K3 c={c} n={n} A={A}, {sweeps} sweeps: supports "
+              f"identical, max|K3-plain| {err:.2e} ({err / scale:.1e} of "
+              f"max|B|); plain {plain_ms:.1f} ms; K3 {ms:.3f} ms; sweeps "
+              f"min/median/max {_spread(st[:, 0])}, moving rows "
+              f"{_spread(st[:, 1])}; {bound['flops']:,} FLOP, "
+              f"{bound['bytes']:,} B, bound {bound['bound_ms']:.4f} ms by "
+              f"{bound['bound_by']} ({100 * bound['bound_ms'] / ms:.3f}% of "
+              "it)", flush=True)
+        if not out:
+            out.update(ms=ms, plain_ms=plain_ms, max_abs_err=err, c=c, n=n,
+                       n_sweeps=sweeps, **bound)
+        else:
+            out[f"ms_c{c}_n{n}_{sweeps}_sweeps"] = ms
+            out[f"bound_ms_c{c}_n{n}_{sweeps}_sweeps"] = bound["bound_ms"]
+            out[f"plain_ms_c{c}_n{n}_{sweeps}_sweeps"] = plain_ms
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+        del gram, alphas, got, ref
+    return out
+
+
+def phase_tiny_grplasso(device) -> dict:
+    """`cli prune --model tiny_resnet --speed 1.2 --set dic.grplasso=true`
+    on the card and on the CPU: the 1x1 consumers select by group lasso
+    (K3 on the card), the solve takes the sequential path, and both devices
+    select identically. Returns the card run's launches."""
+    from channel_pruning_tpu_torch import cli
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        work = WORK / f"tiny_resnet_grplasso_{dev}"
+        shutil.rmtree(work, ignore_errors=True)
+        _zero_launches()
+        runs[dev] = cli.main(["prune", "--model", "tiny_resnet", "--batch", "4",
+                              "--cal-batches", "4", "--cal-batch", "4",
+                              "--speed", "1.2", "--device", dev,
+                              "--set", "dic.grplasso=true",
+                              "--work-dir", str(work)])
+        if dev == "cuda":
+            launches = _launches()
+    card, cpu = runs["cuda"], runs["cpu"]
+    if card.pipelined or cpu.pipelined:
+        raise AssertionError("tiny_resnet grplasso took the pipelined pass")
+    if card.selections.keys() != cpu.selections.keys() or any(
+            not np.array_equal(card.selections[k], cpu.selections[k])
+            for k in cpu.selections):
+        raise AssertionError("tiny_resnet grplasso: card and CPU select "
+                             "differently")
+    if launches["k3"] <= 0:
+        raise AssertionError("tiny_resnet grplasso never launched K3")
+    print(f"[tiny_grplasso] cli prune tiny_resnet --set dic.grplasso=true: "
+          f"card and CPU select identically in {len(cpu.selections)} layers "
+          f"(sequential path); K3 {launches['k3']} launches, K1 "
+          f"{launches['k1']}", flush=True)
+    return launches
+
+
+def _band_checks(res, failures: list) -> list:
+    """Every solved layer's kept count in the released band [t, round(1.1
+    t)] of its target, and every rMSE finite. Returns the layers outside
+    the band."""
+    out_band = [(r.conv, r.target, r.kept) for r in res.reports
+                if not _check_band(r.conv, r.target, r.kept)]
+    if out_band:
+        failures.append(f"outside the band (layer, target, kept): {out_band}")
+    bad = [r.conv for r in res.reports
+           if not (np.isfinite(r.rmse_before) and np.isfinite(r.rmse_after))]
+    if bad:
+        failures.append(f"rMSE not finite in {bad}")
+    return out_band
+
+
+def _ratio_check(res, orig_graph, speed: float, failures: list
+                 ) -> tuple[float, float]:
+    """(the conv-mult ratio, the planner's prediction on the preprocessed
+    graph, as `cli prune` plans it): the ratio held to at least 0.97 of the
+    prediction."""
+    from channel_pruning_tpu_torch.models.vgg import init_params
+    from channel_pruning_tpu_torch.pipeline import c3
+    from channel_pruning_tpu_torch.utils.config import default_config
+    from channel_pruning_tpu_torch.utils.flops import total_flops
+
+    g, _ = c3.preprocess(orig_graph, init_params(orig_graph, seed=0))
+    _, predicted = c3.plan_uniform_targets(
+        g, speed, rank_tol=default_config().dic.rank_tol, with_prediction=True)
+    orig = total_flops(orig_graph, include_fc=False)
+    ratio = orig / total_flops(res.graph, include_fc=False)
+    if ratio < 0.97 * predicted:
+        failures.append(f"conv mults {ratio:.3f}x against the plan's "
+                        f"{predicted:.3f}x")
+    return ratio, predicted
+
+
+def _layer_table(label: str, res) -> None:
+    print(f"[{label}] layer             kind   target  keep       rMSE before "
+          "-> after   grids  s (replay + solve)")
+    for r in res.reports:
+        grids = r.grids if r.grids is not None else "-"
+        split = (f" ({r.replay_seconds:.2f} + {r.solve_seconds:.2f})"
+                 if r.grids is None else "")
+        print(f"[{label}] {r.conv:<17s} {r.kind:<6s} {r.target!s:>6s}  "
+              f"{r.kept:>4d}/{r.total:<5d} {r.rmse_before:.4f} -> "
+              f"{r.rmse_after:.4f}  {grids!s:>5s}  {r.seconds:.3f}{split}")
+
+
+def phase_xception(device) -> dict:
+    """`cli prune --model xception --mode prune --speed 2.0` at 224² with
+    its defaults (the pipelined pass): see the module docstring, phase 10."""
+    import torch
+
+    from channel_pruning_tpu_torch.graph.ir import LT
+    from channel_pruning_tpu_torch.kernels import lasso_cd
+    from channel_pruning_tpu_torch.models.xception import build_xception
+
+    work = WORK / "xception"
+    torch.cuda.reset_peak_memory_stats(device)
+    _zero_launches()
+    t0 = time.perf_counter()
+    res = _prune("xception", "2.0", work)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated(device)
+    _check_pipelined("xception", res)
+    _layer_table("xception", res)
+    failures: list[str] = []
+    out_band = _band_checks(res, failures)
+    ratio, predicted = _ratio_check(res, build_xception(), 2.0, failures)
+    if launches["k1"] <= 0 or launches["k2"] <= 0:
+        failures.append(f"K1 launches {launches['k1']}, K2 {launches['k2']}")
+    g, _, prob = _probs_on(device, work / "cp_xception")
+    if not _gives_probabilities(prob):
+        failures.append("exported model does not give probabilities")
+    dw = [l for l in g.by_type(LT.CONV)
+          if int(l.attr("group", 1)) > 1]
+    shrunk = sum(int(l.attr("num_output")) < int(build_xception().layer(
+        l.name).attr("num_output")) for l in dw)
+    gates = len(g.by_type(LT.SELECT))
+    wide = [r.conv for r in res.reports if r.total > lasso_cd.MAX_C]
+    print(f"[xception] {len(res.reports) - len(out_band)}/{len(res.reports)} "
+          f"consumers in the band [t, round(1.1 t)]; {shrunk}/{len(dw)} "
+          f"depthwise convs shrunk (num_output = group); {gates} Select gates; "
+          f"K2 layers {wide}; conv mults {ratio:.3f}x (plan "
+          f"{predicted:.2f}x)", flush=True)
+    print("[xception] wall " + " ".join(f"{k} {v:.2f}s" for k, v in res.wall.items())
+          + f"; total {wall:.2f}s; kernel launches K1 {launches['k1']} K2 "
+          f"{launches['k2']}; peak device memory {peak / 2**30:.2f} GiB",
+          flush=True)
+    if failures:
+        raise AssertionError("Xception 2x: " + "; ".join(failures))
+    print("[xception] exported model reloads, probabilities sum to 1", flush=True)
+    return {"launches": launches, "wall": wall, "phases": res.wall,
+            "ratio": ratio, "predicted": predicted,
+            "peak_gib": peak / 2**30}
+
+
+def _timed_draws():
+    """Wrap the calibration source's host draws and the chunk uploads with
+    host clocks: returns (seconds and count of batch draws, seconds in
+    device_chunk (draws, concatenation and the copy to the card), restore)."""
+    from channel_pruning_tpu_torch.sampling import inputs as inputs_mod
+    from channel_pruning_tpu_torch.sampling import sampler
+
+    real_batch, real_chunk = inputs_mod.SyntheticInputs.batch, sampler.device_chunk
+    acc = {"draw_s": 0.0, "draws": 0, "chunk_s": 0.0, "chunks": 0}
+
+    def batch(self, i):
+        t = time.perf_counter()
+        x = real_batch(self, i)
+        acc["draw_s"] += time.perf_counter() - t
+        acc["draws"] += 1
+        return x
+
+    def chunk(*a, **k):
+        t = time.perf_counter()
+        x = real_chunk(*a, **k)
+        acc["chunk_s"] += time.perf_counter() - t
+        acc["chunks"] += 1
+        return x
+
+    def restore():
+        inputs_mod.SyntheticInputs.batch = real_batch
+        sampler.device_chunk = real_chunk
+
+    inputs_mod.SyntheticInputs.batch = batch
+    sampler.device_chunk = chunk
+    return acc, restore
+
+
+def _outputs_finite(device, prefix: Path) -> dict:
+    """Reload an export and run one synthetic batch: {output: shape}, with
+    every output finite."""
+    import torch
+
+    from channel_pruning_tpu_torch.convert import params_to_torch
+    from channel_pruning_tpu_torch.io.caffe import import_model
+    from channel_pruning_tpu_torch.ops.forward import run_graph
+    from channel_pruning_tpu_torch.sampling.inputs import SyntheticInputs
+
+    g, p = import_model(f"{prefix}.prototxt", f"{prefix}.caffemodel")
+    spec = g.inputs[0]
+    x = SyntheticInputs(1, spec.shape[0], tuple(spec.shape[1:])).batch(0).to(device)
+    outs, _ = run_graph(g, params_to_torch(p, device), {spec.name: x})
+    if not all(bool(torch.isfinite(v).all()) for v in outs.values()):
+        raise AssertionError(f"{prefix}: non-finite outputs")
+    return {k: tuple(v.shape) for k, v in outs.items()}
+
+
+def phase_frcnn(device) -> dict:
+    """`cli prune --model frcnn_vgg16 --image-size 600 --speed 5.0`: see the
+    module docstring, phase 11."""
+    import torch
+
+    from channel_pruning_tpu_torch.models.faster_rcnn import build_frcnn_backbone
+    from channel_pruning_tpu_torch.sampling import rolling, sampler
+    from channel_pruning_tpu_torch.utils.config import default_config
+
+    work = WORK / "frcnn"
+    g0 = build_frcnn_backbone(batch=10, image_size=600)
+    cfg = default_config()
+    n_images = 500
+    cut = rolling.estimate_peak_bytes(g0, n_images)
+    step = sampler.clamp_chunk_for_hbm(
+        g0, 10, max(cfg.sample.device_batch // 10, 1)) * 10
+    torch.cuda.reset_peak_memory_stats(device)
+    _zero_launches()
+    acc, restore = _timed_draws()
+    t0 = time.perf_counter()
+    try:
+        res = _prune("frcnn_vgg16", "5.0", work, "--image-size", "600")
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated(device)
+    _layer_table("frcnn", res)
+    failures: list[str] = []
+    if res.pipelined:
+        failures.append("took the pipelined pass, want full replays")
+    if cut <= 8 << 30:
+        failures.append(f"the frontier's estimate {cut / 1e9:.1f} GB fits "
+                        "the 8 GB budget")
+    out_band = _band_checks(res, failures)
+    ratio, predicted = _ratio_check(
+        res, build_frcnn_backbone(image_size=600), 5.0, failures)
+    rpn = ("rpn_conv/3x3", "rpn_cls_score", "rpn_bbox_pred")
+    if not all(k in res.selections for k in rpn):
+        failures.append(f"rpn convs pruned: {[k for k in rpn if k in res.selections]}")
+    if launches["k1"] <= 0:
+        failures.append("K1 never launched")
+    shapes = _outputs_finite(device, work / "cp_frcnn_vgg16")
+    replay = sum(r.replay_seconds for r in res.reports)
+    solve = sum(r.solve_seconds for r in res.reports)
+    print(f"[frcnn] {len(res.reports) - len(out_band)}/{len(res.reports)} "
+          f"consumers in the band; rpn convs pruned "
+          f"({', '.join(f'{k} {int(res.selections[k].sum())}' for k in rpn if k in res.selections)}); "
+          f"conv mults {ratio:.3f}x (plan {predicted:.2f}x); "
+          f"frontier estimate {cut / 1e9:.1f} GB > 8 GB: full replays, "
+          f"{step} images a replay step; outputs {shapes}", flush=True)
+    print(f"[frcnn] solve split: replays {replay:.2f}s, solves {solve:.2f}s; "
+          f"host draws {acc['draw_s']:.2f}s in {acc['draws']} batches, "
+          f"device_chunk {acc['chunk_s']:.2f}s in {acc['chunks']} chunks "
+          "(draws, concatenation, copy to the card)", flush=True)
+    print("[frcnn] wall " + " ".join(f"{k} {v:.2f}s" for k, v in res.wall.items())
+          + f"; total {wall:.2f}s; kernel launches K1 {launches['k1']} K2 "
+          f"{launches['k2']}; peak device memory {peak / 2**30:.2f} GiB",
+          flush=True)
+    if failures:
+        raise AssertionError("Faster-RCNN 600² 5x: " + "; ".join(failures))
+    print("[frcnn] exported model reloads, RPN outputs finite", flush=True)
+    return {"launches": launches, "wall": wall, "phases": res.wall,
+            "ratio": ratio, "predicted": predicted,
+            "peak_gib": peak / 2**30, "replay_s": replay, "solve_s": solve,
+            "images_per_step": step, **acc}
+
+
+def phase_vgg16_fitfc(device) -> dict:
+    """`cli prune --model vgg16 --speed 4.0 --set dic.fitfc=true`: see the
+    module docstring, phase 12."""
+    import torch
+
+    work = WORK / "vgg16_fitfc"
+    torch.cuda.reset_peak_memory_stats(device)
+    _zero_launches()
+    t0 = time.perf_counter()
+    res = _prune("vgg16", "4.0", work, "--set", "dic.fitfc=true")
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated(device)
+    _check_pipelined("vgg16_fitfc", res)
+    failures: list[str] = []
+    _band_checks(res, failures)
+    fc = [r for r in res.reports if r.kind == "fc"]
+    if [r.conv for r in fc] != ["fc6"] or "fc6" not in res.selections:
+        failures.append(f"fitfc reports {[r.conv for r in fc]}")
+    else:
+        kept = int(res.selections["fc6"].sum())
+        w53 = res.params["conv5_3"]["W"].shape[0]
+        w6 = res.params["fc6"]["W"].shape[1]
+        if not (w53 == kept < 512 and w6 == kept * 49):
+            failures.append(f"conv5_3 keeps {w53}, fc6 {kept} of 512, fc6 "
+                            f"weight columns {w6}")
+        r = fc[0]
+        print(f"[vgg16_fitfc] fc6: keep {kept}/512 (target {r.target}) rMSE "
+              f"{r.rmse_before:.4f} -> {r.rmse_after:.4f}; dense capture "
+              f"{r.replay_seconds:.2f}s + solve {r.solve_seconds:.2f}s "
+              f"(refit on {kept * 49} columns); conv5_3 keeps {w53}, fc6 "
+              f"weight ({res.params['fc6']['W'].shape[0]}, {w6})", flush=True)
+    g, _, prob = _probs_on(device, work / "cp_vgg16")
+    if not _gives_probabilities(prob):
+        failures.append("exported model does not give probabilities")
+    print("[vgg16_fitfc] wall " + " ".join(f"{k} {v:.2f}s" for k, v in res.wall.items())
+          + f"; total {wall:.2f}s; kernel launches K1 {launches['k1']} K2 "
+          f"{launches['k2']}; peak device memory {peak / 2**30:.2f} GiB",
+          flush=True)
+    if failures:
+        raise AssertionError("VGG-16 4x fitfc: " + "; ".join(failures))
+    print("[vgg16_fitfc] conv5_3 pruned through fc6; the export reloads, "
+          "probabilities sum to 1", flush=True)
+    return {"launches": launches, "wall": wall, "phases": res.wall,
+            "peak_gib": peak / 2**30}
+
+
+def phase_vgg16_autodet(device) -> dict:
+    """`cli prune --model vgg16 --speed 5.0 --set solve.autodet=true`: see
+    the module docstring, phase 13."""
+    import torch
+
+    work = WORK / "vgg16_autodet"
+    torch.cuda.reset_peak_memory_stats(device)
+    _zero_launches()
+    t0 = time.perf_counter()
+    res = _prune_vgg16(work, "--set", "solve.autodet=true")
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated(device)
+    failures: list[str] = []
+    if res.pipelined:
+        failures.append("took the pipelined pass")
+    kept = {r.conv: r.kept for r in res.reports}
+    if not res.reports or any(not (k and k > 0) for k in kept.values()) or any(
+            not (np.isfinite(r.rmse_before) and np.isfinite(r.rmse_after))
+            for r in res.reports):
+        failures.append(f"keep counts {kept}")
+    if launches != {"k1": len(res.reports), "k2": 0, "k3": 0}:
+        failures.append(f"launches {launches} for {len(res.reports)} layers")
+    _, _, prob = _probs_on(device, work / "cp_vgg16")
+    if not _gives_probabilities(prob):
+        failures.append("exported model does not give probabilities")
+    print("[vgg16_autodet] " + ", ".join(
+        f"{r.conv} {r.kept}/{r.total} (alpha {r.alpha:.2e}, rMSE "
+        f"{r.rmse_after:.4f})" for r in res.reports), flush=True)
+    print("[vgg16_autodet] wall " + " ".join(f"{k} {v:.2f}s" for k, v in res.wall.items())
+          + f"; total {wall:.2f}s; kernel launches K1 {launches['k1']} for "
+          f"{len(res.reports)} layers (sequential path); peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    if failures:
+        raise AssertionError("VGG-16 autodet: " + "; ".join(failures))
+    print("[vgg16_autodet] one fixed-alpha K1 launch a layer; the export "
+          "reloads, probabilities sum to 1", flush=True)
+    return {"launches": launches, "wall": wall, "phases": res.wall,
+            "peak_gib": peak / 2**30, "kept": kept}
+
+
 def main() -> int:
     import argparse
 
@@ -1196,8 +1702,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda is not available; this smoke needs an "
               "NVIDIA card", file=sys.stderr)
         return 2
+    from concurrent.futures import ThreadPoolExecutor
+
     from channel_pruning_tpu_torch.device import resolve_device
-    from channel_pruning_tpu_torch.kernels import lasso_cd
+    from channel_pruning_tpu_torch.kernels import group_cd, lasso_cd
     from channel_pruning_tpu_torch.pipeline import c3
 
     card = _card_line()
@@ -1206,20 +1714,26 @@ def main() -> int:
     device = resolve_device("cuda")
 
     t = time.perf_counter()
-    lasso_cd.build()
-    print(f"[build] lasso_cd.cu (K1, K2) -> sm_90a in {time.perf_counter() - t:.2f}s",
-          flush=True)
-    for line in lasso_cd.ptxas_report().splitlines():
+    with ThreadPoolExecutor(2) as pool:      # one nvcc a source, side by side
+        for f in [pool.submit(lasso_cd.build), pool.submit(group_cd.build)]:
+            f.result()
+    print(f"[build] lasso_cd.cu (K1, K2) and group_cd.cu (K3) -> sm_90a in "
+          f"{time.perf_counter() - t:.2f}s", flush=True)
+    for line in (lasso_cd.ptxas_report()
+                 + lasso_cd.ptxas_report(group_cd.SOURCE)).splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print(f"[build] {line.strip()}")
 
     stats = phase_kernel_vs_plain(device)
     stream = phase_stream_vs_plain(device)
+    group = phase_group_vs_plain(device)
     # every pipelined dispatch from here on runs under the sync check
     c3.CHECK_DISPATCH_SYNC = True
     phase_tiny_vgg(device)
     phase_tiny_resnet(device)
     phase_tiny_3c(device)
+    grpl = phase_tiny_grplasso(device)
+    grpl_3c = phase_tiny_3c(device, grplasso=True)
     vgg, wall, vgg_res = phase_main_path(device)
     r50, r50_wall, r50_res = phase_resnet50(device)
     v3c, v3c_wall, _ = phase_vgg16_3c(device)
@@ -1229,33 +1743,53 @@ def main() -> int:
     acc = phase_accuracy_loop(device, args.seed)
     addbn = phase_addbn_3c(device)
     digits = acc["launches"]
+    xcp = phase_xception(device)
+    frcnn = phase_frcnn(device)
+    fitfc = phase_vgg16_fitfc(device)
+    autodet = phase_vgg16_autodet(device)
     if args.profile:
         phase_profile("vgg16", _prune_vgg16, wall)
         phase_profile("resnet50", _prune_resnet50, r50_wall)
         phase_profile("vgg16_3c", lambda work: _prune("vgg16", "4.0", work,
                                                       mode="3c"), v3c_wall)
+        phase_profile("xception", lambda work: _prune("xception", "2.0", work),
+                      xcp["wall"])
+        phase_profile("frcnn", lambda work: _prune(
+            "frcnn_vgg16", "5.0", work, "--image-size", "600"), frcnn["wall"])
 
     (WORK / "train_phases.json").write_text(json.dumps(
         {"card": card, "train": train, "accuracy": acc, "addbn_3c": addbn}, indent=1))
     print(f"[train] phase numbers -> {WORK / 'train_phases.json'}")
+    (WORK / "prune_phases.json").write_text(json.dumps(
+        {"card": card, "xception_2x": xcp, "frcnn_600_5x": frcnn,
+         "vgg16_fitfc_4x": fitfc, "vgg16_autodet_5x": autodet,
+         "k3": group}, indent=1, default=str))
     print(card)
     source = "channel_pruning_tpu_torch/csrc/lasso_cd.cu"
-    # library_ms: no PyTorch call computes Gram-form coordinate descent
+    by_path = {"vgg16_5x": vgg, "resnet50_2x": r50, "vgg16_3c_4x": v3c,
+               "digits_vgg_16x": digits, "tiny_resnet_grplasso": grpl,
+               "tiny_3c_grplasso": grpl_3c,
+               "xception_2x": xcp["launches"], "frcnn_600_5x": frcnn["launches"],
+               "vgg16_fitfc_4x": fitfc["launches"],
+               "vgg16_autodet_5x": autodet["launches"]}
+
+    def launches(k):
+        per = {name: n[k] for name, n in by_path.items()}
+        return {"launches": sum(per.values()), "launches_by_path": per}
+
+    # library_ms: no PyTorch call computes Gram-form coordinate descent, nor
+    # the group lasso's block coordinate descent
     print(json.dumps({"kernels": [
         {"name": "lasso_cd_grid", "route": "cuda", "source": source,
          "replaces": "channel_pruning_tpu/kernels/lasso_cd.py:85",
-         "launches": vgg["k1"] + r50["k1"] + v3c["k1"] + digits["k1"],
-         "launches_by_path": {"vgg16_5x": vgg["k1"], "resnet50_2x": r50["k1"],
-                              "vgg16_3c_4x": v3c["k1"],
-                              "digits_vgg_16x": digits["k1"]},
-         "library_ms": None, **stats},
+         **launches("k1"), "library_ms": None, **stats},
         {"name": "lasso_cd_grid_stream", "route": "cuda", "source": source,
          "replaces": "channel_pruning_tpu/kernels/lasso_cd.py:209",
-         "launches": vgg["k2"] + r50["k2"] + v3c["k2"] + digits["k2"],
-         "launches_by_path": {"vgg16_5x": vgg["k2"], "resnet50_2x": r50["k2"],
-                              "vgg16_3c_4x": v3c["k2"],
-                              "digits_vgg_16x": digits["k2"]},
-         "library_ms": None, **stream}]}))
+         **launches("k2"), "library_ms": None, **stream},
+        {"name": "group_cd_grid", "route": "cuda",
+         "source": "channel_pruning_tpu_torch/csrc/group_cd.cu",
+         "replaces": "channel_pruning_tpu/ops/lasso.py:612",
+         **launches("k3"), "library_ms": None, **group}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from channel_pruning_tpu_torch.kernels import lasso_cd
+from channel_pruning_tpu_torch.kernels import group_cd, lasso_cd
 from channel_pruning_tpu_torch.ops import lasso
 
 
@@ -165,3 +165,94 @@ def test_kernel_pads_widths_off_the_tma_grain(card, c, n_sweeps):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
     np.testing.assert_array_equal(stats.cpu().numpy(), stats_ref.cpu().numpy())
+
+
+def _group_problem(seed, c, n, device, rows=250):
+    """A 1x1 consumer's group-lasso Gram (the row subsample of 250 rows of
+    post-ReLU inputs against He-init weights, as chip_smoke.py builds it)
+    and a 16-alpha grid below the alpha that zeroes every row."""
+    rng = np.random.default_rng(seed)
+    X = np.maximum(rng.normal(size=(rows, c)), 0).astype(np.float32)
+    W = (rng.normal(size=(c, n)) * np.sqrt(2.0 / c)).astype(np.float32)
+    Y = (X @ W + 0.05 * rng.normal(size=(rows, n))).astype(np.float32)
+    gram = lasso.group_gram(torch.from_numpy(X).to(device),
+                            torch.from_numpy(Y).to(device))
+    a_max = float(torch.linalg.vector_norm(gram.C, dim=1).max()) / rows
+    alphas = torch.as_tensor(np.geomspace(1e-3 * a_max, a_max, 16) * rows,
+                             dtype=torch.float32).to(device)
+    return gram, alphas
+
+
+def _group_supports(Bs):
+    """Each alpha's rows with a norm above 1e-6 of its largest, as
+    search_alpha_group counts them."""
+    norms = lasso.group_row_norms(Bs)
+    return (norms > 1e-6 * norms.amax(dim=1, keepdim=True)).cpu().numpy()
+
+
+def _assert_group_close(got, ref):
+    np.testing.assert_array_equal(_group_supports(got), _group_supports(ref))
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n,n_sweeps", [(256, 256, 200), (2048, 512, 3),
+                                          (512, 2048, 3)])
+def test_group_kernel_matches_plain_version(card, c, n, n_sweeps):
+    """K3 against its plain version on the same card inputs: identical row
+    supports and B within 1e-5 of max|B| (the kernel sums a row's squares
+    in another order, so not bit for bit); one launch counted."""
+    gram, alphas = _group_problem(c + n, c, n, card)
+    before = group_cd.LAUNCHES
+    got = group_cd.group_cd_solve_grid(gram.G, gram.C, alphas,
+                                       n_sweeps=n_sweeps)
+    torch.cuda.synchronize()
+    assert group_cd.LAUNCHES == before + 1
+    ref = group_cd.group_cd_solve_grid_plain(gram.G, gram.C, alphas,
+                                             n_sweeps=n_sweeps)
+    _assert_group_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_group_kernel_inf_alpha_and_stats(card):
+    """An alpha of +inf leaves B at exactly 0 after one sweep with no moving
+    row; the other alphas' sweeps stay within the limit."""
+    gram, alphas = _group_problem(9, 128, 64, card)
+    alphas[3] = float("inf")
+    stats = torch.zeros((16, 2), dtype=torch.int32, device=card)
+    got = group_cd.group_cd_solve_grid(gram.G, gram.C, alphas, stats=stats)
+    torch.cuda.synchronize()
+    assert torch.equal(got[3], torch.zeros_like(got[3]))
+    st = stats.cpu().numpy()
+    assert st[3].tolist() == [1, 0]
+    assert (st[:, 0] >= 1).all() and (st[:, 0] <= 200).all()
+
+
+@pytest.mark.cuda
+def test_group_kernel_rejects_bad_inputs(card):
+    G = torch.eye(8, device=card)
+    C = torch.ones(8, 4, device=card)
+    a = torch.ones(2, device=card)
+    with pytest.raises(TypeError):
+        group_cd.group_cd_solve_grid(G.double(), C, a)
+    with pytest.raises(ValueError):
+        group_cd.group_cd_solve_grid(G, C.cpu(), a)
+    with pytest.raises(ValueError, match="n <= "):
+        group_cd.group_cd_solve_grid(
+            G, torch.ones(8, group_cd.MAX_N + 1, device=card), a)
+
+
+@pytest.mark.cuda
+def test_synthetic_chunks_from_the_pinned_set_equal_fresh_draws(card):
+    """On the card a synthetic set is drawn once into pinned host memory and
+    chunks are copied from there: the same images as drawn batch by batch."""
+    from channel_pruning_tpu_torch.sampling import inputs as inputs_mod
+
+    src = inputs_mod.SyntheticInputs(n_batches=5, bs=3, sample_shape=(3, 8, 8),
+                                     seed=4)
+    got = inputs_mod.device_chunk(src, 1, 4, card)
+    want = torch.cat([src.batch(i) for i in range(1, 4)]).to(card)
+    assert torch.equal(got, want)
+    assert src.pinned.is_pinned()
+    assert torch.equal(inputs_mod.device_chunk(src, 0, 5, "cpu"),
+                       torch.cat([src.batch(i) for i in range(5)]))
