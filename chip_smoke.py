@@ -24,9 +24,12 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
      grid at c = 2048 takes about a minute), timed over 3 and 200 sweeps;
   3c. K3 against its plain version on seeded 1x1-consumer problems, 16
      alphas: (c, n) = (256, 256) over 200 sweeps, (2048, 512) and (512,
-     2048) (ResNet-50's res5 shapes) over 3: identical row supports and B
-     within 1e-5 of max|B|; K3 timed with CUDA events beside its sweeps,
-     moving rows and bound, the plain version at (256, 256);
+     2048) (ResNet-50's res5 shapes) over 3: B bit for bit and the same
+     per-alpha sweeps and moving rows; each shape's launch plan (variant,
+     K blocks a cluster, clusters resident at once) and ptxas's registers
+     and shared memory for K3; K3 timed with CUDA events beside its
+     sweeps, moving rows and bound, the plain version at each shape, and
+     K3 alone over 20 sweeps at the res5 shapes;
   4. the tiny VGG and the tiny ResNet (Select gates, residual compensation,
      DAG frontier, band=bottom) through the default pipelined pass on the
      card and on the CPU, and the sequential pass on the card: identical
@@ -1281,18 +1284,43 @@ def _group_bound(c: int, n: int, n_alpha: int, stats) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def _ptxas_kernels(report: str) -> list[str]:
+    """ptxas's registers, stack, spills and shared memory per kernel
+    entry of a build report, one string each."""
+    out, name = [], None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            for mangled, short in (("group_cd_grid_kernelILb1E", "<smem>"),
+                                   ("group_cd_grid_kernelILb0E", "<global>")):
+                if mangled in name:
+                    name = "group_cd_grid_kernel" + short
+        elif name and ("stack frame" in line or "Used" in line):
+            text = line.split(":", 1)[-1].strip() if "Used" in line else line.strip()
+            out.append(f"{name}: {text}")
+            if "Used" in line:
+                name = None
+    return out
+
+
 def phase_group_vs_plain(device) -> dict:
     """K3 against its plain version on seeded 1x1-consumer problems: (c, n)
     = (256, 256) over the full 200 sweeps, and ResNet-50's res5 shapes
-    (2048, 512) and (512, 2048) over 3 sweeps, 16 alphas each: identical
-    row supports and B within 1e-5 of max|B| (the kernel sums a row's
-    squares in another order); K3 alone timed with CUDA events beside the
-    sweeps, moving rows and bound; the plain version timed at (256, 256).
-    The returned numbers are those at (256, 256), the others beside them."""
+    (2048, 512) and (512, 2048) over 3 sweeps, 16 alphas each: B bit for
+    bit (torch.equal) and the same sweeps and moving rows for every alpha;
+    each shape's launch plan (variant, K, rows a block, shared memory,
+    clusters resident at once); K3 alone timed with CUDA events beside the
+    sweeps, moving rows and bound; the plain version timed at each shape;
+    then K3 alone over 20 sweeps at the res5 shapes (what a 200-sweep res5
+    grid costs, without a plain run of that length). The returned numbers
+    are those at (256, 256), the others beside them."""
     import torch
 
-    from channel_pruning_tpu_torch.kernels import group_cd
+    from channel_pruning_tpu_torch.kernels import group_cd, lasso_cd
     from channel_pruning_tpu_torch.ops import lasso
+
+    for line in _ptxas_kernels(lasso_cd.ptxas_report(group_cd.SOURCE)):
+        print(f"[kernel] K3 ptxas {line}", flush=True)
 
     def supports(Bs):
         norms = lasso.group_row_norms(Bs)
@@ -1303,42 +1331,74 @@ def phase_group_vs_plain(device) -> dict:
                                                  (2048, 512, 3, 2),
                                                  (512, 2048, 3, 2))):
         gram, alphas = _group_problem(seed, c, n, device)
+        plan = group_cd.launch_plan(c, n, A, gram.G.device)
+        print(f"[kernel] K3 c={c} n={n} A={A} plan: variant {plan.variant}, "
+              f"K={plan.k} blocks a cluster ({A * plan.k} blocks), "
+              f"{c // plan.k}-{plan.rows} rows a block (r, r + K, ...), "
+              f"{plan.smem_bytes:,} B dynamic "
+              f"shared memory a block, cudaOccupancyMaxActiveClusters "
+              f"{plan.active_clusters}, {plan.waves} wave(s)", flush=True)
         stats = torch.zeros((A, 2), dtype=torch.int32, device=device)
+        stats_ref = torch.zeros_like(stats)
         before = group_cd.LAUNCHES
         got = group_cd.group_cd_solve_grid(gram.G, gram.C, alphas,
                                            n_sweeps=sweeps, stats=stats)
         if group_cd.LAUNCHES != before + 1:
             raise AssertionError(f"K3 ({c}, {n}): not launched once")
         plain_ms, ref = _time_ms(lambda: group_cd.group_cd_solve_grid_plain(
-            gram.G, gram.C, alphas, n_sweeps=sweeps), 1)
+            gram.G, gram.C, alphas, n_sweeps=sweeps, stats=stats_ref), 1)
         err = float((got - ref).abs().max())
         scale = float(ref.abs().max())
         if not torch.equal(supports(got), supports(ref)):
             raise AssertionError(f"K3 ({c}, {n}): row supports differ from "
                                  "the plain version's")
-        if not err <= 1e-5 * scale:
-            raise AssertionError(f"K3 ({c}, {n}): max|K3-plain| {err} > "
-                                 f"1e-5 * max|B| {scale}")
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K3 ({c}, {n}): B differs from the plain "
+                                 f"version's (max|K3-plain| {err})")
+        if not torch.equal(stats, stats_ref):
+            raise AssertionError(f"K3 ({c}, {n}): sweeps / moving rows "
+                                 f"{stats.tolist()}, plain "
+                                 f"{stats_ref.tolist()}")
         ms, _ = _time_ms(lambda: group_cd.group_cd_solve_grid(
             gram.G, gram.C, alphas, n_sweeps=sweeps), reps)
         st = stats.cpu().numpy()
         bound = _group_bound(c, n, A, st)
+        rows_run = int(st[:, 0].astype(np.int64).max()) * c
         print(f"[kernel] K3 c={c} n={n} A={A}, {sweeps} sweeps: supports "
-              f"identical, max|K3-plain| {err:.2e} ({err / scale:.1e} of "
-              f"max|B|); plain {plain_ms:.1f} ms; K3 {ms:.3f} ms; sweeps "
-              f"min/median/max {_spread(st[:, 0])}, moving rows "
-              f"{_spread(st[:, 1])}; {bound['flops']:,} FLOP, "
+              f"identical, B equal bit for bit (max|K3-plain| {err:.1e}), "
+              f"stats equal; plain {plain_ms:.1f} ms; K3 {ms:.3f} ms "
+              f"({1e3 * ms / rows_run:.3f} us a row step of the longest "
+              f"alpha); sweeps min/median/max {_spread(st[:, 0])}, moving "
+              f"rows {_spread(st[:, 1])}; {bound['flops']:,} FLOP, "
               f"{bound['bytes']:,} B, bound {bound['bound_ms']:.4f} ms by "
               f"{bound['bound_by']} ({100 * bound['bound_ms'] / ms:.3f}% of "
               "it)", flush=True)
+        key = f"c{c}_n{n}_{sweeps}_sweeps"
+        plan_info = {"variant": plan.variant, "k": plan.k,
+                     "active_clusters": plan.active_clusters,
+                     "smem_bytes": plan.smem_bytes}
         if not out:
             out.update(ms=ms, plain_ms=plain_ms, max_abs_err=err, c=c, n=n,
-                       n_sweeps=sweeps, **bound)
+                       n_sweeps=sweeps, plan=plan_info, **bound)
         else:
-            out[f"ms_c{c}_n{n}_{sweeps}_sweeps"] = ms
-            out[f"bound_ms_c{c}_n{n}_{sweeps}_sweeps"] = bound["bound_ms"]
-            out[f"plain_ms_c{c}_n{n}_{sweeps}_sweeps"] = plain_ms
+            out[f"ms_{key}"] = ms
+            out[f"bound_ms_{key}"] = bound["bound_ms"]
+            out[f"plain_ms_{key}"] = plain_ms
+            out[f"plan_{key}"] = plan_info
             out["max_abs_err"] = max(out["max_abs_err"], err)
+        if sweeps < 20:         # a res5 shape: K3 alone over 20 sweeps
+            ms20, _ = _time_ms(lambda: group_cd.group_cd_solve_grid(
+                gram.G, gram.C, alphas, n_sweeps=20, stats=stats), 1)
+            st = stats.cpu().numpy()
+            bound20 = _group_bound(c, n, A, st)
+            print(f"[kernel] K3 c={c} n={n} A={A}, 20 sweeps (kernel only): "
+                  f"{ms20:.1f} ms; sweeps min/median/max {_spread(st[:, 0])}, "
+                  f"moving rows {_spread(st[:, 1])}; bound "
+                  f"{bound20['bound_ms']:.4f} ms by {bound20['bound_by']} "
+                  f"({100 * bound20['bound_ms'] / ms20:.3f}% of it)",
+                  flush=True)
+            out[f"ms_c{c}_n{n}_20_sweeps"] = ms20
+            out[f"bound_ms_c{c}_n{n}_20_sweeps"] = bound20["bound_ms"]
         del gram, alphas, got, ref
     return out
 

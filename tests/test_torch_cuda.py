@@ -4,6 +4,8 @@ jax is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -190,9 +192,29 @@ def _group_supports(Bs):
     return (norms > 1e-6 * norms.amax(dim=1, keepdim=True)).cpu().numpy()
 
 
-def _assert_group_close(got, ref):
+def _assert_group_equal(got, ref, stats, stats_ref):
+    """Bit for bit: the kernel gives every element of Q the plain version's
+    f32 updates in its order and sums a row's squares in `_block_sum`'s."""
     np.testing.assert_array_equal(_group_supports(got), _group_supports(ref))
-    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(got, ref)
+    assert torch.equal(stats, stats_ref)
+
+
+def _group_vs_plain(gram, alphas, n_sweeps=200):
+    """K3 and its plain version on the same card inputs, one launch
+    counted: (got, ref, stats, stats_ref)."""
+    A = alphas.shape[0]
+    stats = torch.zeros((A, 2), dtype=torch.int32, device=alphas.device)
+    stats_ref = torch.zeros_like(stats)
+    before = group_cd.LAUNCHES
+    got = group_cd.group_cd_solve_grid(gram.G, gram.C, alphas,
+                                       n_sweeps=n_sweeps, stats=stats)
+    torch.cuda.synchronize()
+    assert group_cd.LAUNCHES == before + 1
+    ref = group_cd.group_cd_solve_grid_plain(gram.G, gram.C, alphas,
+                                             n_sweeps=n_sweeps,
+                                             stats=stats_ref)
+    return got, ref, stats, stats_ref
 
 
 @pytest.mark.cuda
@@ -200,28 +222,43 @@ def _assert_group_close(got, ref):
                                           (512, 2048, 3)])
 def test_group_kernel_matches_plain_version(card, c, n, n_sweeps):
     """K3 against its plain version on the same card inputs: identical row
-    supports and B within 1e-5 of max|B| (the kernel sums a row's squares
-    in another order, so not bit for bit); one launch counted."""
+    supports, B bit for bit and the same sweeps and moving rows for every
+    alpha; one launch counted."""
     gram, alphas = _group_problem(c + n, c, n, card)
-    before = group_cd.LAUNCHES
-    got = group_cd.group_cd_solve_grid(gram.G, gram.C, alphas,
-                                       n_sweeps=n_sweeps)
-    torch.cuda.synchronize()
-    assert group_cd.LAUNCHES == before + 1
-    ref = group_cd.group_cd_solve_grid_plain(gram.G, gram.C, alphas,
-                                             n_sweeps=n_sweeps)
-    _assert_group_close(got, ref)
+    _assert_group_equal(*_group_vs_plain(gram, alphas, n_sweeps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,n,n_alpha,variant", [
+    (37, 64, 16, "smem"),      # c not a multiple of K: blocks of 4 and 5 rows
+    (300, 1100, 16, "global"),  # 37-38 rows a block
+    (64, 1500, 16, "global"),  # n > 1024 in device memory, 8 rows
+    (72, 600, 16, "smem"),     # 9-12 rows of Q a thread in registers
+    (50, 5, 16, "smem"),       # n < 32: 204 threads share a column
+    (200, 600, 16, "global"),  # 1024 / n = 1: 424 threads idle in Q's update
+    (40, 2100, 16, "global"),  # n > 2048: the slot read as Q updates, arrive after
+    (256, 256, 1, "smem"),     # one alpha: the widest cluster
+    (1, 8, 4, "smem"),         # one row: a cluster of one block
+])
+def test_group_kernel_awkward_shapes(card, c, n, n_alpha, variant):
+    """K3 at shapes off the main path, each variant: B and stats bit for
+    bit against the plain version over 200 sweeps."""
+    gram, alphas = _group_problem(c * n, c, n, card)
+    alphas = alphas[::16 // n_alpha][:n_alpha].contiguous()
+    plan = group_cd.launch_plan(c, n, n_alpha, card)
+    assert plan.variant == variant and plan.k >= min(c, 2)
+    _assert_group_equal(*_group_vs_plain(gram, alphas))
 
 
 @pytest.mark.cuda
 def test_group_kernel_inf_alpha_and_stats(card):
     """An alpha of +inf leaves B at exactly 0 after one sweep with no moving
-    row; the other alphas' sweeps stay within the limit."""
+    row; the other alphas' sweeps stay within the limit; all of it equal to
+    the plain version's."""
     gram, alphas = _group_problem(9, 128, 64, card)
     alphas[3] = float("inf")
-    stats = torch.zeros((16, 2), dtype=torch.int32, device=card)
-    got = group_cd.group_cd_solve_grid(gram.G, gram.C, alphas, stats=stats)
-    torch.cuda.synchronize()
+    got, ref, stats, stats_ref = _group_vs_plain(gram, alphas)
+    _assert_group_equal(got, ref, stats, stats_ref)
     assert torch.equal(got[3], torch.zeros_like(got[3]))
     st = stats.cpu().numpy()
     assert st[3].tolist() == [1, 0]
@@ -240,6 +277,21 @@ def test_group_kernel_rejects_bad_inputs(card):
     with pytest.raises(ValueError, match="n <= "):
         group_cd.group_cd_solve_grid(
             G, torch.ones(8, group_cd.MAX_N + 1, device=card), a)
+
+
+@pytest.mark.cuda
+def test_group_kernel_refuses_a_bad_plan(card, monkeypatch):
+    """A plan the kernel cannot take (too little shared memory, more blocks
+    than rows) makes the launch fail and the wrapper raise: no fallback."""
+    gram, alphas = _group_problem(3, 64, 32, card)
+    good = group_cd.launch_plan(64, 32, 16, card)
+    for bad in (dataclasses.replace(good, smem_bytes=good.smem_bytes - 4),
+                dataclasses.replace(good, k=65)):
+        monkeypatch.setattr(group_cd, "launch_plan", lambda *a, p=bad: p)
+        before = group_cd.LAUNCHES
+        with pytest.raises(RuntimeError, match="launch failed"):
+            group_cd.group_cd_solve_grid(gram.G, gram.C, alphas)
+        assert group_cd.LAUNCHES == before
 
 
 @pytest.mark.cuda
