@@ -36,8 +36,10 @@ subcommand that touches a device takes `--device`, which defaults to
 
 The defaults are the JAX CLI's: the channel-pruning solve is the pipelined
 pass with the fused alpha search (`--set solve.fused_search=False` runs the
-sequential host-stepped solve). One preset is not carried over: the JAX CLI
-replays VGG in bf16, and the port replays in f32.
+sequential host-stepped solve), and every graph whose name contains "vgg"
+replays in bf16 (`solve.dtype=bfloat16`: operands rounded to bf16, f32
+products, sums and outputs) unless `--set solve.dtype=...` is given;
+`--set solve.dtype=float32` replays in f32.
 """
 from __future__ import annotations
 
@@ -195,8 +197,14 @@ def cmd_prune(args):
     t0 = time.perf_counter()
     graph, params = _load_model(args)
     phases["load"] = time.perf_counter() - t0
+    if ("vgg" in graph.name
+            and not any(kv.startswith("solve.dtype") for kv in args.set or [])):
+        # the JAX CLI's VGG preset (channel_pruning_tpu/cli.py:161-165);
+        # other families stay on f32
+        cfg = cfg.replace_nested("solve.dtype", "bfloat16")
     print(f"[prune] model {graph.name}: {len(graph.convs)} convs, "
-          f"{flops.total_flops(graph):,} mults; device {_card(device)}")
+          f"{flops.total_flops(graph):,} mults; device {_card(device)}; "
+          f"replays in {cfg.solve.dtype}")
 
     graph, params = c3.preprocess(graph, params)
     if args.mode == "prune":

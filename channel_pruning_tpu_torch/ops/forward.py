@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from channel_pruning_tpu_torch.graph.ir import Graph, Layer, LT
+from channel_pruning_tpu_torch.graph.ir import Graph, Layer, LT, shapes_of
 
 Params = Mapping[str, Mapping[str, torch.Tensor]]
 
@@ -85,16 +85,114 @@ def as_dtype(dtype) -> torch.dtype | None:
     return getattr(torch, str(dtype))
 
 
+# compute dtypes whose every value TF32 holds exactly: bf16's 8 and fp16's
+# 11 significand bits against TF32's 11, inside f32's exponent range
+_TF32_EXACT = (torch.bfloat16, torch.float16)
+EXACT_RTOL = 1e-5        # max|TF32 conv - f32 conv| over max|f32 conv|
+_ROUTES: dict[tuple, str] = {}
+
+
+def _conv_kw(geo: dict[str, int]) -> dict:
+    return dict(stride=(geo["sh"], geo["sw"]), padding=(geo["ph"], geo["pw"]),
+                groups=geo["group"])
+
+
+def tf32_convs(allow: bool = True):
+    """cuDNN's TF32 convs on (or off) inside the block only, with the
+    deterministic heuristic choice of algorithm that `device.fp32_solver`
+    sets; every flag is restored on exit."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=True, allow_tf32=allow)
+
+
+def _route_key(x_shape, w_shape, geo, dtype, device) -> tuple:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:      # "cuda" is "cuda:<current>"
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return (tuple(int(d) for d in x_shape), tuple(int(d) for d in w_shape),
+            tuple(sorted(geo.items())), dtype, dev)
+
+
+def conv_route(x_shape, w_shape, geo: dict[str, int], dtype: torch.dtype,
+               device) -> str:
+    """How `_conv2d` runs a conv of operands rounded to `dtype` on a card:
+    "tf32" where cuDNN's TF32 conv at this shape equals the f32 conv
+    (TF32 off) within EXACT_RTOL of its largest |value|, else "f32".
+    Products of such operands are exact in TF32 and summed in f32, unless
+    the algorithm cuDNN picks transforms the operands first (Winograd,
+    FFT). Decided once a shape, dtype and device in a process, on seeded
+    random operands at the real shape (the algorithm depends on it); a
+    shape that leaves TF32 is printed."""
+    key = _route_key(x_shape, w_shape, geo, dtype, device)
+    route = _ROUTES.get(key)
+    if route is not None:
+        return route
+    route, device = "f32", key[-1]
+    if dtype in _TF32_EXACT:
+        gen = torch.Generator(device=device).manual_seed(0)
+        x = torch.randn(key[0], generator=gen, device=device).to(dtype).float()
+        w = torch.randn(key[1], generator=gen, device=device).to(dtype).float()
+        with torch.no_grad():
+            with tf32_convs(False):
+                ref = F.conv2d(x, w, None, **_conv_kw(geo))
+            with tf32_convs():
+                got = F.conv2d(x, w, None, **_conv_kw(geo))
+        err = float((got - ref).abs().max() / ref.abs().max())
+        del x, w, got, ref
+        if err <= EXACT_RTOL:
+            route = "tf32"
+        else:
+            print(f"[conv] x {key[0]} w {key[1]} {geo}: the TF32 conv of "
+                  f"{str(dtype).split('.')[-1]} operands is off the f32 "
+                  f"conv by {err:.2e} of its max; this shape runs the f32 "
+                  "conv", flush=True)
+    _ROUTES[key] = route
+    return route
+
+
+def conv_shapes(graph: Graph, batch: int):
+    """(layer, x shape, W shape, geometry) of every conv at `batch` images."""
+    shapes = shapes_of(graph, batch=batch)
+    out = []
+    for l in graph.layers:
+        if l.type == LT.CONV:
+            geo = l.conv_geometry()
+            x = shapes[l.bottoms[0]]
+            out.append((l, x, (int(l.attr("num_output")), x[1] // geo["group"],
+                               geo["kh"], geo["kw"]), geo))
+    return out
+
+
+def settle_conv_routes(graph: Graph, batch: int, compute_dtype, device) -> None:
+    """Decide `conv_route` for every conv of `graph` at `batch` images now
+    (each decision reads the card once), so that a pass that must not wait
+    on the host (the pipelined solve) finds them made."""
+    cd = as_dtype(compute_dtype)
+    if cd is None or torch.device(device).type != "cuda":
+        return
+    for _, x, w, geo in conv_shapes(graph, batch):
+        conv_route(x, w, geo, cd, device)
+
+
 def _conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
             geo: dict[str, int], compute_dtype: torch.dtype | None) -> torch.Tensor:
-    """With `compute_dtype`, input and weights are cast to it and the output
-    is f32 with the bias added in f32, as the JAX package's
-    preferred_element_type=f32 conv."""
-    kw = dict(stride=(geo["sh"], geo["sw"]), padding=(geo["ph"], geo["pw"]),
-              groups=geo["group"])
+    """With `compute_dtype`, the JAX package's conv
+    (channel_pruning_tpu/ops/forward.py:30-47): x and W rounded to it, the
+    products and their sums in f32, an f32 output, the bias added in f32.
+    On the CPU an f32 conv of the rounded operands; on a card the same
+    through cuDNN with TF32 allowed for this call where `conv_route` found
+    the shape exact, else with TF32 off. Never the native low-precision
+    conv, which rounds its output to that precision."""
+    kw = _conv_kw(geo)
     if compute_dtype is None:
         return F.conv2d(x, w, b, **kw)
-    out = F.conv2d(x.to(compute_dtype), w.to(compute_dtype), None, **kw).float()
+    xr, wr = x.to(compute_dtype).float(), w.to(compute_dtype).float()
+    if x.device.type == "cuda" and conv_route(
+            xr.shape, wr.shape, geo, compute_dtype, x.device) == "tf32":
+        with tf32_convs():
+            out = F.conv2d(xr, wr, None, **kw)
+    else:
+        out = F.conv2d(xr, wr, None, **kw)
     return out if b is None else out + _channel(b.float(), out.ndim)
 
 

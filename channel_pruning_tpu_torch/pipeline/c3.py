@@ -207,25 +207,33 @@ def plan_uniform_targets(graph: Graph, speed_ratio: float,
 
 
 def _maybe_rolling(g_run: Graph, cache: sampling.FrozenCache, device,
-                   budget: int = 8 << 30):
+                   compute_dtype: str | None = None, budget: int = 8 << 30):
     """The O(L) rolling frontier when the whole-set activation cut fits the
     budget: the chain variant for plain nets, the DAG-cut variant for
-    residual topologies. None means full replays per layer."""
+    residual topologies. None means full replays per layer. The frontier
+    is f32 whatever `compute_dtype` its convs run in."""
     n_images = cache.n_batches * cache.batch_size
     if rolling_mod.is_chain(g_run):
         if rolling_mod.estimate_peak_bytes(g_run, n_images) > budget:
             return None
         return rolling_mod.RollingReplay(g_run, cache.inputs, device=device,
-                                         plan=cache.plan)
+                                         plan=cache.plan,
+                                         compute_dtype=compute_dtype)
     if rolling_mod.estimate_cut_bytes(g_run, n_images) > budget:
         return None
     return rolling_mod.RollingReplayDAG(g_run, cache.inputs, device=device,
-                                        plan=cache.plan)
+                                        plan=cache.plan,
+                                        compute_dtype=compute_dtype)
+
+
+def _replay_dtype(cfg: Config) -> str | None:
+    """The replays' conv dtype, as the JAX package's `cdt`: None for f32."""
+    return None if cfg.solve.dtype == "float32" else cfg.solve.dtype
 
 
 def _patches(roll, g_run: Graph, dev_run, cache: sampling.FrozenCache,
-             conv: str, device, chunk: int, fallbacks: list[str]
-             ) -> torch.Tensor:
+             conv: str, device, chunk: int, fallbacks: list[str],
+             compute_dtype: str | None = None) -> torch.Tensor:
     """`conv`'s input patches at its planned points: from the rolling
     frontier, or from a full replay where the frontier cannot serve them
     (the conv is then recorded in `fallbacks`)."""
@@ -238,7 +246,8 @@ def _patches(roll, g_run: Graph, dev_run, cache: sampling.FrozenCache,
             fallbacks.append(conv)
     return sampling.sample_patches(g_run, dev_run, cache.inputs, conv,
                                    cache.plan, device=device,
-                                   chunk_batches=chunk)
+                                   chunk_batches=chunk,
+                                   compute_dtype=compute_dtype)
 
 
 def _residual_context(g_run: Graph, consumer_top: str):
@@ -252,12 +261,11 @@ def _residual_context(g_run: Graph, consumer_top: str):
 
 
 def check_supported(graph: Graph, cfg: Config) -> None:
-    """Raise NotImplementedError for options the port's solve does not run
-    yet: only bf16 replays."""
-    if cfg.solve.dtype != "float32":
-        raise NotImplementedError(
-            f"not ported yet: solve.dtype={cfg.solve.dtype} (the port replays "
-            "in f32 until a parity run on the card proves bf16)")
+    """Raise ValueError for a `solve.dtype` the replays do not run (the JAX
+    package's names for f32 and bf16 only)."""
+    if cfg.solve.dtype not in sampling.REPLAY_DTYPES:
+        raise ValueError(f"solve.dtype={cfg.solve.dtype}: the replays run in "
+                         f"one of {', '.join(sampling.REPLAY_DTYPES)}")
 
 
 def _ground_truth(feats_dev: dict[str, torch.Tensor],
@@ -496,6 +504,11 @@ def solve_prune(graph: Graph, params: Mapping[str, Mapping[str, np.ndarray]],
     the solve on the sequential path (`_no_pipeline`), which also serves
     `solve.fused_search=False`.
 
+    `solve.dtype` ("bfloat16" or "bf16") runs every replay's convs as the
+    JAX package does (`_replay_dtype`): operands rounded to bf16, f32
+    products, sums and outputs; the frozen ground truth, fitfc's dense
+    capture and all solver math stay f32.
+
     `checkpoint` is a pipeline.checkpoint.SolveCheckpoint; its
     writes are asynchronous, so an exception joins the one in flight before
     it propagates (the last completed layer is on disk for the resume)."""
@@ -541,7 +554,8 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
     dev_run = params_to_torch({k: v for k, v in p_run.items() if k not in fcs},
                               device)
     feats_dev: dict[str, torch.Tensor] = {}   # ground truth, uploaded once
-    roll = _maybe_rolling(g_run, cache, device)
+    cdt = _replay_dtype(cfg)       # the replays' convs; fitfc's capture f32
+    roll = _maybe_rolling(g_run, cache, device, cdt)
 
     # the fused single-task solve cannot serve a 1x1 consumer under group
     # lasso (select_and_reconstruct routes those to the group path), nor
@@ -577,7 +591,7 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
         n_in = p_run[consumer]["W"].shape[1]
         t0 = time.perf_counter()
         X = _patches(roll, g_run, dev_run, cache, consumer, device, chunk,
-                     frontier_fallbacks)
+                     frontier_fallbacks, cdt)
         top = g_run.layer(consumer).tops[0]
         b2 = torch.as_tensor(np.asarray(p_run[consumer].get(
             "b", np.zeros(p_run[consumer]["W"].shape[0], np.float32)),
@@ -600,7 +614,8 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
                 cur = {o: torch.as_tensor(v).to(device) for o, v in
                        sampling.sample_features(
                            g_run, dev_run, cache.inputs, cache.plan, others,
-                           device=device, chunk_batches=chunk).items()}
+                           device=device, chunk_batches=chunk,
+                           compute_dtype=cdt).items()}
             Y = _ground_truth(feats_dev, cache, e_top, device) - b2
             for o in others:
                 Y = Y - cur[o]
@@ -841,11 +856,12 @@ def _solve_3c(graph, params, cache, cfg, ranks, skip, device, checkpoint,
     dev_run = params_to_torch({k: v for k, v in p_run.items() if k not in fcs},
                               device)
     feats_dev: dict[str, torch.Tensor] = {}   # ground truth, uploaded once
-    roll = _maybe_rolling(g_run, cache, device)
+    cdt = _replay_dtype(cfg)
+    roll = _maybe_rolling(g_run, cache, device, cdt)
 
     def patches(conv: str) -> torch.Tensor:
         return _patches(roll, g_run, dev_run, cache, conv, device, chunk,
-                        frontier_fallbacks)
+                        frontier_fallbacks, cdt)
 
     def overwrite(conv: str, W: torch.Tensor, b: torch.Tensor) -> None:
         """The running conv's new weights: on the device as computed, and

@@ -15,8 +15,12 @@ Eager PyTorch needs no compiled segments: a segment is a plain loop of
 `ops/forward.compute_layer` over the graph's layers. Given the solve's
 point plan at construction, the frontier uploads its indices once, so
 `advance_to`, `patches_at` and `features_at(device=True)` make no blocking
-copy. `FrontierError` is the only exception a caller may treat as "fall
-back to a full replay".
+copy. With a `compute_dtype` (the JAX package's `solve.dtype`, e.g.
+"bfloat16") every conv ahead of the frontier runs as `ops/forward._conv2d`
+runs it: operands rounded to that dtype, f32 products, sums and outputs;
+the frontier itself stays f32, as in the JAX package. On a card the
+frontier decides each conv's route once, at construction. `FrontierError`
+is the only exception a caller may treat as "fall back to a full replay".
 """
 from __future__ import annotations
 
@@ -24,10 +28,12 @@ import numpy as np
 import torch
 
 from channel_pruning_tpu_torch.graph.ir import Graph, LT, shapes_of
-from channel_pruning_tpu_torch.ops.forward import compute_layer
+from channel_pruning_tpu_torch.ops.forward import (compute_layer,
+                                                  settle_conv_routes)
 from channel_pruning_tpu_torch.ops.patches import (gather_channels_grouped,
                                                    gather_patches_grouped)
 from channel_pruning_tpu_torch.sampling.inputs import device_chunk
+from channel_pruning_tpu_torch.sampling.sampler import _dtype_of
 
 _STRUCT = (LT.ELTWISE, LT.CONCAT, LT.SELECT)
 
@@ -82,7 +88,7 @@ def estimate_cut_bytes(graph: Graph, n_images: int, dtype_bytes: int = 4) -> int
 
 
 def _forward(layers, env: dict[str, torch.Tensor], params,
-             until: str | None = None) -> None:
+             until: str | None = None, compute_dtype=None) -> None:
     """Evaluate `layers` in order into env, skipping those whose bottoms are
     not all present; stop once `until` has been produced."""
     if until is not None and until in env:
@@ -90,7 +96,7 @@ def _forward(layers, env: dict[str, torch.Tensor], params,
     for l in layers:
         if not all(b in env for b in l.bottoms):
             continue
-        compute_layer(l, env, params)
+        compute_layer(l, env, params, compute_dtype=compute_dtype)
         if until is not None and until in env:
             return
 
@@ -113,9 +119,11 @@ class _Groups:
     the device, and the per-group point slices of a plan. The frontier's
     own plan (`plan`) goes to the device once, at construction, so no
     gather waits on a host-to-device copy; any other plan is uploaded per
-    call."""
+    call. `compute_dtype` is the dtype of the convs ahead of the frontier;
+    their routes on a card are settled here, at the groups' shape."""
 
-    def __init__(self, inputs, group_batches: int, device, plan=None):
+    def __init__(self, graph: Graph, inputs, group_batches: int, device,
+                 plan=None, compute_dtype=None):
         n_batches = inputs.shape[0]
         step = min(group_batches, n_batches)
         while n_batches % step:
@@ -125,6 +133,9 @@ class _Groups:
         self.device = device
         self.plan = plan
         self._plan_dev = _upload_plan(plan, device) if plan is not None else {}
+        self.compute_dtype = _dtype_of(compute_dtype)
+        settle_conv_routes(graph, step * int(inputs.shape[1]),
+                           self.compute_dtype, device)
 
     def upload(self, inputs) -> list[torch.Tensor]:
         step = self.group_batches
@@ -161,9 +172,10 @@ class RollingReplay:
     calibration set, stored as per-group chunks of `group_batches` batches."""
 
     def __init__(self, graph: Graph, inputs, *, device, group_batches: int = 10,
-                 plan=None):
+                 plan=None, compute_dtype=None):
         self.graph = graph
-        self._g = _Groups(inputs, group_batches, device, plan)
+        self._g = _Groups(graph, inputs, group_batches, device, plan,
+                          compute_dtype)
         self.groups: list[torch.Tensor] = self._g.upload(inputs)
         self.tensor = graph.inputs[0].name
 
@@ -187,7 +199,8 @@ class RollingReplay:
         layers = self._ahead()
         for i, g in enumerate(self.groups):
             env = {self.tensor: g}
-            _forward(layers, env, params, until=tensor)
+            _forward(layers, env, params, until=tensor,
+                     compute_dtype=self._g.compute_dtype)
             self.groups[i] = env[tensor]
             del env, g                      # free the old group before the next
         self.tensor = tensor
@@ -209,7 +222,8 @@ class RollingReplay:
         outs = []
         for gi, g in enumerate(self.groups):
             env = {self.tensor: g}
-            _forward(layers, env, params, until=tensor)
+            _forward(layers, env, params, until=tensor,
+                     compute_dtype=self._g.compute_dtype)
             if tensor not in env:
                 raise FrontierError(f"{tensor} is not ahead of the frontier "
                                     f"at {self.tensor}")
@@ -225,9 +239,10 @@ class RollingReplayDAG:
     same O(L) conv work and the same API as `RollingReplay`."""
 
     def __init__(self, graph: Graph, inputs, *, device, group_batches: int = 10,
-                 plan=None):
+                 plan=None, compute_dtype=None):
         self.graph = graph
-        self._g = _Groups(inputs, group_batches, device, plan)
+        self._g = _Groups(graph, inputs, group_batches, device, plan,
+                          compute_dtype)
         self.state: dict[str, list[torch.Tensor]] = {
             graph.inputs[0].name: self._g.upload(inputs)}
         self.pos = -1                      # index of the last executed layer
@@ -256,7 +271,8 @@ class RollingReplayDAG:
             env = {t: v[gi] for t, v in self.state.items()}
             for v in self.state.values():
                 v[gi] = None
-            _forward(layers, env, params)
+            _forward(layers, env, params,
+                     compute_dtype=self._g.compute_dtype)
             for t, a in env.items():
                 if self.last.get(t, -1) > idx or t in keep_tops:
                     new_state.setdefault(t, []).append(a)
@@ -285,7 +301,8 @@ class RollingReplayDAG:
                 v = self.state[tensor][gi]
             else:
                 env = {t: g[gi] for t, g in self.state.items()}
-                _forward(layers, env, params)
+                _forward(layers, env, params,
+                         compute_dtype=self._g.compute_dtype)
                 v = env.pop(tensor)
                 del env
             outs.append(gather_channels_grouped(

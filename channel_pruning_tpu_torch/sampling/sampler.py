@@ -7,7 +7,7 @@ channel_pruning_tpu/sampling/sampler.py).
 * `sample_patches`: replay the current graph up to a conv's bottom and
   gather its (N, c, kh, kw) input patches at the planned output points;
 * `sample_dense`: replay and capture whole tensors, one row per image (the
-  inputs of an FC consumer, for fitfc);
+  inputs of an FC consumer, for fitfc), always in f32;
 * `FrozenCache`: the npz layout of the JAX package, so a cache frozen there
   loads here.
 
@@ -56,6 +56,15 @@ def make_point_plan(shapes: Mapping[str, tuple[int, ...]], tensors: Sequence[str
     return plan
 
 
+# `solve.dtype` names (the JAX package's) -> the conv dtype of a replay
+REPLAY_DTYPES = {"float32": None, "bfloat16": torch.bfloat16,
+                 "bf16": torch.bfloat16}
+
+
+def _dtype_of(name):
+    return None if name is None else REPLAY_DTYPES[name]
+
+
 def _chunk_iter(n_batches: int, chunk_batches: int):
     step = min(chunk_batches, n_batches)
     while n_batches % step:
@@ -73,10 +82,13 @@ def _plan_slice(plan, t: str, lo: int, hi: int, device):
 def sample_features(graph: Graph, params, inputs,
                     plan: Mapping[str, tuple[np.ndarray, np.ndarray]],
                     tensors: Sequence[str], *, device,
-                    chunk_batches: int = 25) -> dict[str, np.ndarray]:
+                    chunk_batches: int = 25,
+                    compute_dtype: str | None = None) -> dict[str, np.ndarray]:
     """Ground-truth response sampling: {tensor: (n_batches*P*bs, C)} (dense
     (n_images, D) for non-spatial tensors). inputs: (n_batches, bs, C, H, W)
-    host array or SyntheticInputs; params on `device`."""
+    host array or SyntheticInputs; params on `device`. `compute_dtype`
+    ("bfloat16") runs the convs on rounded operands with f32 sums, for
+    replays only: the freeze's ground truth stays f32."""
     tensors = tuple(tensors)
     input_name = graph.inputs[0].name
     sub = graph.ancestors_subgraph(tensors)     # skip layers past the captures
@@ -94,7 +106,8 @@ def sample_features(graph: Graph, params, inputs,
             return tf
 
         _, caps = run_graph(sub, params, {input_name: x},
-                            capture_transforms={t: make_tf(t) for t in tensors})
+                            capture_transforms={t: make_tf(t) for t in tensors},
+                            compute_dtype=_dtype_of(compute_dtype))
         for t in tensors:
             outs[t].append(caps[t])
     return {t: torch.cat(v, dim=0).cpu().numpy() for t, v in outs.items()}
@@ -102,9 +115,11 @@ def sample_features(graph: Graph, params, inputs,
 
 def sample_patches(graph: Graph, params, inputs, conv: str,
                    plan: Mapping[str, tuple[np.ndarray, np.ndarray]], *,
-                   device, chunk_batches: int = 25) -> torch.Tensor:
+                   device, chunk_batches: int = 25,
+                   compute_dtype: str | None = None) -> torch.Tensor:
     """Replay the current graph and gather the (N, c, kh, kw) input patches
-    of `conv` at its planned output points; stays on `device`."""
+    of `conv` at its planned output points; stays on `device`. The convs
+    run in `compute_dtype` as in `sample_features`."""
     l = graph.layer(conv)
     geo = l.conv_geometry()
     bottom, top = l.bottoms[0], l.tops[0]
@@ -118,7 +133,7 @@ def sample_patches(graph: Graph, params, inputs, conv: str,
         _, caps = run_graph(
             sub, params, {input_name: x},
             capture_transforms={bottom: lambda v: gather_patches_grouped(
-                v, ys, xs, *kern)})
+                v, ys, xs, *kern)}, compute_dtype=_dtype_of(compute_dtype))
         outs.append(caps[bottom])
     return torch.cat(outs, dim=0)
 

@@ -5,10 +5,13 @@ On a CUDA device every time comes from CUDA events around work queued back
 to back, with no host read inside the timed region; on the CPU (only when
 asked for by name) from the host clock. Each result names the device and
 the precision flags in force (`device.fp32_solver` turns TF32 off for
-every entry point), and MFU is given against the H100's dense peak for the
-dtype the timed forward ran in: 67 TFLOP/s in f32 (TF32 off), 989 TFLOP/s
-in bf16/fp16 (NVIDIA's data sheet, SXM at 700 W). No peak is claimed for a
-CPU or another card: MFU is then None.
+every entry point), and MFU is given against the H100's dense peak for
+what the timed forward ran: 67 TFLOP/s for f32 (TF32 off); with a bf16 or
+fp16 compute dtype each conv runs the JAX package's semantics on its
+`ops/forward.conv_route`, at TF32's 495 TFLOP/s where the route is TF32
+and at f32's elsewhere (NVIDIA's data sheet, SXM at 700 W), so the peak is
+the forward's FLOPs over the least time those rates allow. No peak is
+claimed for a CPU or another card: MFU is then None.
 """
 from __future__ import annotations
 
@@ -20,8 +23,7 @@ import torch
 
 from channel_pruning_tpu_torch.ops.forward import as_dtype
 
-H100_PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
-                   torch.float16: 989e12}
+H100_PEAK_FLOPS = {"f32": 67e12, "tf32": 495e12}
 
 
 @contextlib.contextmanager
@@ -41,12 +43,41 @@ def device_trace(logdir: str):
     prof.export_chrome_trace(str(Path(logdir) / "trace.json"))
 
 
-def peak_flops(device, compute_dtype=None) -> float | None:
-    """The H100's dense peak for the conv dtype, on an H100; else None."""
+def conv_routes(graph, batch: int, compute_dtype, device) -> dict[str, str]:
+    """Each conv's route ("tf32" or "f32", `ops/forward.conv_route`) in a
+    forward of `graph` at `batch` images in `compute_dtype` on a card (the
+    forward that ran decided them); empty without a dtype or a card."""
+    from channel_pruning_tpu_torch.ops.forward import conv_route, conv_shapes
+
+    cd = as_dtype(compute_dtype)
+    if cd is None or torch.device(device).type != "cuda":
+        return {}
+    return {l.name: conv_route(x, w, geo, cd, device)
+            for l, x, w, geo in conv_shapes(graph, batch)}
+
+
+def peak_flops(device, compute_dtype=None, graph=None,
+               batch: int = 1) -> float | None:
+    """The H100's dense peak for a forward of `graph` at `batch` images, on
+    an H100; else None. f32 without a compute dtype; with one, the FLOPs
+    over the least time the convs' routes and f32 for the rest allow."""
+    from channel_pruning_tpu_torch.graph.ir import shapes_of
+    from channel_pruning_tpu_torch.utils import flops as flops_mod
+
     device = torch.device(device)
     if device.type != "cuda" or "H100" not in torch.cuda.get_device_name(device):
         return None
-    return H100_PEAK_FLOPS[as_dtype(compute_dtype) or torch.float32]
+    f32 = H100_PEAK_FLOPS["f32"]
+    routes = conv_routes(graph, batch, compute_dtype, device)
+    if not routes:
+        return f32
+    total = 2.0 * flops_mod.total_flops(graph, batch=batch)
+    least = total / f32
+    shapes = shapes_of(graph, batch=1)
+    for name, route in routes.items():
+        f = 2.0 * flops_mod.layer_flops(graph, shapes, name) * batch
+        least += f / H100_PEAK_FLOPS[route] - f / f32
+    return total / least
 
 
 def mfu(total_flops: float, seconds: float, peak: float | None) -> float | None:
@@ -97,12 +128,14 @@ def _result(graph, device, b, ms, compute_dtype, **extra) -> dict:
     from channel_pruning_tpu_torch.utils import flops as flops_mod
 
     flops_per_image = 2.0 * flops_mod.total_flops(graph)
+    routes = list(conv_routes(graph, b, compute_dtype, device).values())
     return {"device": device_name(device),
             "dtype": str(as_dtype(compute_dtype) or torch.float32).split(".")[-1],
+            "conv_routes": {r: routes.count(r) for r in sorted(set(routes))},
             "flags": precision_flags(), "batch": float(b), **extra,
             "images_per_sec": float(b / (ms / 1e3)),
             "mfu": mfu(flops_per_image * b, ms / 1e3,
-                       peak_flops(device, compute_dtype))}
+                       peak_flops(device, compute_dtype, graph, b))}
 
 
 @torch.no_grad()

@@ -30,10 +30,21 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
      and shared memory for K3; K3 timed with CUDA events beside its
      sweeps, moving rows and bound, the plain version at each shape, and
      K3 alone over 20 sweeps at the res5 shapes;
-  4. the tiny VGG and the tiny ResNet (Select gates, residual compensation,
-     DAG frontier, band=bottom) through the default pipelined pass on the
-     card and on the CPU, and the sequential pass on the card: identical
-     selections, and the pipelined pass runs to its end;
+  3d. the bf16 replay conv (`ops/forward._conv2d`, the JAX package's
+     semantics: operands rounded to bf16, f32 products, sums and output) at
+     every distinct conv shape of VGG-16 at 224² (the frontier's 100-image
+     groups) and of the Faster-RCNN backbone at 600² (40 images a replay
+     step, the RPN conv and heads included): within 1e-5 of the largest
+     |value| of the f32 conv (TF32 off) of the same rounded operands; per
+     shape the route (cuDNN with TF32 for that call, or TF32 off where TF32
+     was not exact) and the ms of that route, of the f32 conv and of the
+     native bf16 conv (timed for comparison only); TF32 off afterwards, and
+     after every `cli prune` of the later phases;
+  4. the tiny VGG (in f32 and in bf16) and the tiny ResNet (Select gates,
+     residual compensation, DAG frontier, band=bottom) through the default
+     pipelined pass on the card and on the CPU, and the sequential pass on
+     the card: identical selections, and the pipelined pass runs to its
+     end;
   4b. the tiny VGG through 3C (VH, ITQ and the pruning arm, full schedules)
      on the card and on the CPU: the same structure and selections;
   4c. `cli prune --model tiny_resnet --speed 1.2 --set dic.grplasso=true` on
@@ -43,15 +54,21 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
      prunes a 1x1 consumer by group lasso (K3 launched on the card);
   5. the main path, `cli prune --model vgg16 --mode prune --speed 5.0
      --device cuda` with its defaults (the pipelined pass with the fused
-     search; 50 x 10 synthetic calibration images, random He-init weights):
+     search, bf16 replays as for every VGG-family graph; 50 x 10 synthetic
+     calibration images, random He-init weights):
      the pass runs to its end with no restart, every layer's dispatch under
      torch.cuda.set_sync_debug_mode("error") (a host sync there raises),
      keep counts equal the released 5x table, the first layer starts from
-     an exact input, reconstruction beats the accumulated error from the
-     third pruned layer on (the first two end above their start on random
+     an input exact but for bf16's rounding (rMSE below 2^-8),
+     reconstruction beats the accumulated error from the third pruned
+     layer on (the first two end above their start on random
      weights in the JAX package too, and are held to fixed bounds near
      their observed values), the kernel was launched, and the exported
-     model reloads and runs to finite probabilities that sum to 1;
+     model reloads and runs to finite probabilities that sum to 1; then
+     once more with `--set solve.dtype=float32` on a copy of its frozen
+     cache: the same masks in every layer, every final rMSE within 1e-3,
+     the first layer from an exact input (rMSE below 1e-4), both walls
+     printed;
   5b. the second main path, `cli prune --model resnet50 --mode prune
      --speed 2.0 --device cuda`, the same way: all 32 branch2a/2b widths
      inside the released band [t, round(1.1 t)] (tools/band_check.py's
@@ -62,10 +79,11 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
      reloads and gives probabilities;
   5d. the 3C path, `cli prune --model vgg16 --mode 3c --speed 4.0 --device
      cuda` from scratch with its defaults (the VGG-16 4x ranks, conv1_1
-     skipped, the pruning arms on the fused search), then `cli combine` and
-     `cli flop` on its export: 12/12 layers fully decomposed (VH+ITQ), each
-     of the 11 arms keeps a count in the search's band [d_c, d_c + rank_tol
-     d_c] above d_c = floor(C_out / dic.c_ratio), every rMSE finite, K1
+     skipped, the pruning arms on the fused search, bf16 replays), then
+     `cli combine` and `cli flop` on its export: 12/12 layers fully
+     decomposed (VH+ITQ), each of the 11 arms keeps a count in the search's
+     band [d_c, d_c + rank_tol d_c] above d_c = floor(C_out / dic.c_ratio),
+     every rMSE finite, K1
      launched on the arms, the export reloads and gives probabilities, and
      the combined model gives the same probabilities on one batch (1e-4);
      the per-layer table (rank, rMSE VH -> final, arm keep and rMSE, the
@@ -116,7 +134,10 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
      images a step `clamp_chunk_for_hbm` allows: the same band and ratio
      checks, the RPN convs pruned, the export reloads with finite outputs;
      the split of the solve (replays, solves, the host's draws of the
-     synthetic images and their copies) printed;
+     synthetic images and their copies) printed; the replays in bf16 (the
+     VGG-family default), then once more in f32 on a copy of the frozen
+     cache: its band and ratio checks, the count of masks that differ,
+     both walls and the replays' seconds;
   12. `cli prune --model vgg16 --speed 4.0 --set dic.fitfc=true`: the
      pipelined conv pass, then conv5_3 pruned through fc6 (a dense capture,
      the single-task search on K1 over 7x7 patches, the refit of fc6 on
@@ -411,6 +432,10 @@ def phase_tiny_vgg(device) -> None:
     inputs = np.random.default_rng(7).normal(0, 1, (8, 4, 3, 16, 16)).astype(np.float32)
     _tiny_agree("tiny_vgg", g, params, inputs, default_config(), device, 10,
                 channel_targets=TINY_TARGETS)
+    _tiny_agree("tiny_vgg_bf16", g, params, inputs,
+                default_config().replace_nested("solve.dtype", "bfloat16"),
+                device, 10, channel_targets=TINY_TARGETS)
+    _tf32_off()
 
 
 def phase_tiny_resnet(device) -> None:
@@ -499,13 +524,34 @@ def phase_tiny_3c(device, grplasso: bool = False) -> dict:
     return launches
 
 
-def _prune(model: str, speed: str, work: Path, *extra: str, mode: str = "prune"):
+def _tf32_off() -> None:
+    """TF32 stays off process-wide (`device.fp32_solver`): the bf16 conv
+    turns it on for its own call only."""
+    import torch
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    if flags != (False, False):
+        raise AssertionError(f"TF32 flags (cudnn, matmul) left at {flags}")
+
+
+def _prune(model: str, speed: str, work: Path, *extra: str, mode: str = "prune",
+           cache_from: Path | None = None):
+    """`cli prune` in a fresh work dir; with `cache_from`, on a copy of that
+    run's frozen cache (so two runs solve one cache). The TF32 flags must
+    be off after it."""
     from channel_pruning_tpu_torch import cli
 
     shutil.rmtree(work, ignore_errors=True)
-    return cli.main(["prune", "--model", model, "--mode", mode,
-                     "--speed", speed, "--device", "cuda",
-                     "--work-dir", str(work), *extra])
+    if cache_from is not None:
+        work.mkdir(parents=True)
+        for f in cache_from.glob("frozen_*.npz"):
+            shutil.copy(f, work / f.name)
+    res = cli.main(["prune", "--model", model, "--mode", mode,
+                    "--speed", speed, "--device", "cuda",
+                    "--work-dir", str(work), *extra])
+    _tf32_off()
+    return res
 
 
 def _prune_vgg16(work: Path, *extra: str):
@@ -606,12 +652,14 @@ def phase_main_path(device):
 
     _check_pipelined("main", res)
     _check_vgg_counts(work, res)
-    # conv1_2 starts from an exact input (rMSE ~0, 0.345 after on the card);
+    # conv1_2's input is exact but for the bf16 replay's rounding of
+    # conv1_1's operands (rMSE 2.3e-3, held below bf16's relative spacing
+    # 2^-8; the f32 leg holds it below 1e-4), 0.345 after on the card;
     # conv2_1, keeping 22 of 64 random-weight channels, ends above its start
     # in the JAX package too (tests/test_torch_pipeline.py::
     # test_vgg16_64px_rmse_matches_jax), 0.261 -> 0.325 on the card; from
     # conv2_2 on, reconstruction must beat the accumulated error
-    if res.reports[0].rmse_before >= 1e-4:
+    if res.reports[0].rmse_before >= 2.0 ** -8:
         raise AssertionError(f"first layer starts at rMSE {res.reports[0].rmse_before}")
     for i, r in enumerate(res.reports):
         bound = (0.5, 1.5 * r.rmse_before)[i] if i < 2 else r.rmse_before
@@ -1113,7 +1161,8 @@ def phase_train_vgg16(device, seed: int) -> dict:
                 "ms": r["device_ms_per_step"], "images_per_s": r["images_per_sec"],
                 "mfu": r["mfu"]}
             mfu = "not measured (no peak for this card)" if r["mfu"] is None \
-                else f"{r['mfu']:.4f} of the H100's dense {dtype} peak"
+                else (f"{r['mfu']:.4f} of the H100's dense peak for its conv "
+                      f"routes {r['conv_routes'] or 'f32'}")
             print(f"[train] forward {label} {dtype} at batch 32: "
                   f"{r['device_ms_per_step']:.3f} ms, {r['images_per_sec']:.1f} "
                   f"images/s, MFU {mfu}; flags {r['flags']}", flush=True)
@@ -1654,7 +1703,7 @@ def phase_frcnn(device) -> dict:
     return {"launches": launches, "wall": wall, "phases": res.wall,
             "ratio": ratio, "predicted": predicted,
             "peak_gib": peak / 2**30, "replay_s": replay, "solve_s": solve,
-            "images_per_step": step, **acc}
+            "images_per_step": step, **acc}, res
 
 
 def phase_vgg16_fitfc(device) -> dict:
@@ -1745,6 +1794,191 @@ def phase_vgg16_autodet(device) -> dict:
             "peak_gib": peak / 2**30, "kept": kept}
 
 
+def _replay_conv_cases() -> list:
+    """(label, layer names, x shape, W shape, geometry) of every distinct
+    conv shape of the two bf16 replay paths at the batch they replay:
+    VGG-16 at 224² in the frontier's groups (10 batches of the CLI's 10
+    images) and the Faster-RCNN backbone at 600² (RPN conv and heads
+    included) in the full replays' steps (`clamp_chunk_for_hbm`)."""
+    from channel_pruning_tpu_torch.models.faster_rcnn import build_frcnn_backbone
+    from channel_pruning_tpu_torch.models.vgg import build_vgg16
+    from channel_pruning_tpu_torch.ops.forward import conv_shapes
+    from channel_pruning_tpu_torch.sampling import sampler
+    from channel_pruning_tpu_torch.utils.config import default_config
+
+    frcnn = build_frcnn_backbone(batch=10, image_size=600)
+    step = sampler.clamp_chunk_for_hbm(
+        frcnn, 10, max(default_config().sample.device_batch // 10, 1))
+    cases: dict[tuple, list] = {}
+    for label, g, batch in (("vgg16", build_vgg16(), 10 * 10),
+                            ("frcnn", frcnn, step * 10)):
+        for l, x, w, geo in conv_shapes(g, batch):
+            key = (label, x, w, tuple(sorted(geo.items())))
+            cases.setdefault(key, [label, [], x, w, geo])[1].append(l.name)
+    return list(cases.values())
+
+
+def phase_bf16_conv(device) -> dict:
+    """The bf16 replay conv (`ops/forward._conv2d` with compute_dtype
+    bfloat16) at every distinct conv shape of the bf16 replay paths,
+    against the f32 conv (TF32 off) of the same bf16-rounded operands:
+    within EXACT_RTOL of its largest |value| at each shape. Per shape: the
+    route taken and the ms (CUDA events) of that route, of the f32 conv of
+    the unrounded operands and of the native bf16 conv (which rounds its
+    output; timed for comparison only, the port never runs it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from channel_pruning_tpu_torch.ops import forward
+
+    bf16 = torch.bfloat16
+    rows, failures = [], []
+    for label, names, xs, ws, geo in _replay_conv_cases():
+        gen = torch.Generator(device=device).manual_seed(len(rows))
+        x = torch.randn(xs, generator=gen, device=device)
+        if names[0] not in ("conv1_1",):
+            x = x.relu_()                 # a replay's post-ReLU activations
+        w = torch.randn(ws, generator=gen, device=device) * (
+            2.0 / (ws[1] * ws[2] * ws[3])) ** 0.5
+        b = 0.1 * torch.randn(ws[:1], generator=gen, device=device)
+        kw = dict(stride=(geo["sh"], geo["sw"]), padding=(geo["ph"], geo["pw"]),
+                  groups=geo["group"])
+        route = forward.conv_route(xs, ws, geo, bf16, device)
+        got = forward._conv2d(x, w, b, geo, bf16)
+        with forward.tf32_convs(False):
+            ref = F.conv2d(x.to(bf16).float(), w.to(bf16).float(), None,
+                           **kw) + b[:, None, None]
+        err = float((got - ref).abs().max() / ref.abs().max())
+        del got, ref
+        if not err <= forward.EXACT_RTOL:
+            failures.append(f"{label} {names}: {err:.2e}")
+        reps = 5
+        ms_route, _ = _time_ms(lambda: forward._conv2d(x, w, b, geo, bf16), reps)
+        with forward.tf32_convs(False):
+            ms_f32, _ = _time_ms(lambda: F.conv2d(x, w, b, **kw), reps)
+        xb, wb, bb = x.to(bf16), w.to(bf16), b.to(bf16)
+        ms_native, _ = _time_ms(lambda: F.conv2d(xb, wb, bb, **kw), reps)
+        del x, w, b, xb, wb, bb
+        oh = (xs[2] + 2 * geo["ph"] - geo["kh"]) // geo["sh"] + 1
+        ow = (xs[3] + 2 * geo["pw"] - geo["kw"]) // geo["sw"] + 1
+        flop = 2 * xs[0] * oh * ow * ws[0] * ws[1] * ws[2] * ws[3]
+        rows.append({"path": label, "layers": names, "x": xs, "w": ws,
+                     "route": route, "max_rel_err": err, "ms_route": ms_route,
+                     "ms_f32": ms_f32, "ms_native_bf16": ms_native,
+                     "gflop": flop / 1e9})
+        print(f"[bf16_conv] {label} {','.join(names)} x {xs} w {ws}: route "
+              f"{route}, max|conv - f32 conv of rounded operands| "
+              f"{err:.2e} of max; ms {route} route {ms_route:.3f}, f32 "
+              f"{ms_f32:.3f}, native bf16 {ms_native:.3f}; "
+              f"{flop / ms_route / 1e9:.1f} TFLOP/s on the route", flush=True)
+        torch.cuda.empty_cache()
+    _tf32_off()
+    if failures:
+        raise AssertionError("bf16 conv off the f32 conv of its rounded "
+                             "operands: " + "; ".join(failures))
+    f32 = [f"{r['path']} {','.join(r['layers'])}" for r in rows
+           if r["route"] != "tf32"]
+    for path in ("vgg16", "frcnn"):
+        sel = [r for r in rows if r["path"] == path]
+        print(f"[bf16_conv] {path}: {len(sel)} shapes, "
+              f"{sum(r['route'] == 'tf32' for r in sel)} on TF32; summed ms "
+              f"route {sum(r['ms_route'] for r in sel):.2f}, f32 "
+              f"{sum(r['ms_f32'] for r in sel):.2f}, native bf16 "
+              f"{sum(r['ms_native_bf16'] for r in sel):.2f}", flush=True)
+    print(f"[bf16_conv] every shape within {forward.EXACT_RTOL:.0e} of the "
+          f"f32 conv of its rounded operands; shapes on the f32 route: "
+          f"{f32 or 'none'}; TF32 flags off after the phase", flush=True)
+    return {"shapes": rows}
+
+
+def _legs(label: str, res, other, eps: float = 1e-3) -> tuple[list, float]:
+    """(layers whose masks differ, largest |difference| of the rMSE each
+    layer ends at) of two solves of one cache, printed layer by layer (the
+    rMSE a layer starts from differs by the replays' own rounding)."""
+    differ = [k for k in res.selections
+              if not np.array_equal(res.selections[k], other.selections.get(k))]
+    gap = 0.0
+    for r, o in zip(res.reports, other.reports):
+        d = abs(r.rmse_after - o.rmse_after)
+        gap = max(gap, d)
+        print(f"[{label}] {r.conv:<14s} keep {r.kept}/{r.total} vs {o.kept}; "
+              f"rMSE {r.rmse_before:.5f} -> {r.rmse_after:.5f} vs "
+              f"{o.rmse_before:.5f} -> {o.rmse_after:.5f} ({d:.1e}"
+              f"{' > ' + str(eps) if d > eps else ''})", flush=True)
+    return differ, gap
+
+
+def phase_vgg16_f32_leg(device, bf16_res, bf16_wall) -> dict:
+    """VGG-16 5x once more with `--set solve.dtype=float32` on a copy of the
+    bf16 main path's frozen cache: the same masks, every layer's final rMSE
+    within 1e-3 of the bf16 run's (BENCH_NOTES.md:61-64's claim for the
+    TPU), the first layer from an exact input; both walls printed."""
+    work = WORK / "vgg16_f32"
+    _zero_launches()
+    t0 = time.perf_counter()
+    res = _prune("vgg16", "5.0", work, "--set", "solve.dtype=float32",
+                 cache_from=WORK / "vgg16")
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    _check_pipelined("vgg16_f32", res)
+    _check_vgg_counts(work, res)
+    if res.reports[0].rmse_before >= 1e-4:      # f32: an exact input
+        raise AssertionError(f"f32: first layer starts at rMSE "
+                             f"{res.reports[0].rmse_before}")
+    differ, gap = _legs("vgg16_f32", bf16_res, res)
+    walls = {"bfloat16": bf16_res.wall, "float32": res.wall}
+    print(f"[vgg16_f32] bf16 (main path) against f32 on one frozen cache: "
+          f"masks differ in {len(differ)}/{len(res.selections)} layers "
+          f"{differ}; largest rMSE difference {gap:.2e}; wall bf16 "
+          f"{bf16_wall:.2f}s (solve {bf16_res.wall['solve']:.2f}s), f32 "
+          f"{wall:.2f}s (solve {res.wall['solve']:.2f}s, the cache loaded); "
+          f"K1 {launches['k1']}", flush=True)
+    if differ or gap > 1e-3:
+        raise AssertionError(f"VGG-16 5x bf16 against f32: masks differ in "
+                             f"{differ}, largest rMSE difference {gap:.2e}")
+    return {"launches": launches, "wall": wall, "walls": walls,
+            "rmse_gap": gap, "masks_differ": differ}
+
+
+def phase_frcnn_f32_leg(device, bf16_res) -> dict:
+    """Faster-RCNN 600² 5x once more with `--set solve.dtype=float32` on a
+    copy of the bf16 run's frozen cache: the band and ratio checks, the
+    count of masks that differ, both walls and the replays' seconds."""
+    from channel_pruning_tpu_torch.models.faster_rcnn import build_frcnn_backbone
+
+    work = WORK / "frcnn_f32"
+    _zero_launches()
+    acc, restore = _timed_draws()
+    t0 = time.perf_counter()
+    try:
+        res = _prune("frcnn_vgg16", "5.0", work, "--image-size", "600", "--set",
+                     "solve.dtype=float32", cache_from=WORK / "frcnn")
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    failures: list[str] = []
+    _band_checks(res, failures)
+    ratio, _ = _ratio_check(res, build_frcnn_backbone(image_size=600), 5.0,
+                            failures)
+    differ, gap = _legs("frcnn_f32", bf16_res, res, eps=float("inf"))
+    replay = sum(r.replay_seconds for r in res.reports)
+    replay_bf16 = sum(r.replay_seconds for r in bf16_res.reports)
+    print(f"[frcnn_f32] bf16 against f32 on one frozen cache: masks differ in "
+          f"{len(differ)}/{len(res.selections)} layers {differ}; largest "
+          f"rMSE difference {gap:.2e}; f32 conv mults {ratio:.3f}x; replays "
+          f"bf16 {replay_bf16:.2f}s, f32 {replay:.2f}s; solve bf16 "
+          f"{bf16_res.wall['solve']:.2f}s, f32 {res.wall['solve']:.2f}s; f32 "
+          "wall " + " ".join(f"{k} {v:.2f}s" for k, v in res.wall.items())
+          + f" total {wall:.2f}s (the cache loaded); K1 {launches['k1']}",
+          flush=True)
+    if failures:
+        raise AssertionError("Faster-RCNN 600² 5x f32 leg: " + "; ".join(failures))
+    return {"launches": launches, "wall": wall, "phases": res.wall,
+            "replay_s": replay, "replay_bf16_s": replay_bf16,
+            "masks_differ": differ, "rmse_gap": gap, **acc}
+
+
 def main() -> int:
     import argparse
 
@@ -1787,6 +2021,7 @@ def main() -> int:
     stats = phase_kernel_vs_plain(device)
     stream = phase_stream_vs_plain(device)
     group = phase_group_vs_plain(device)
+    bf16_conv = phase_bf16_conv(device)
     # every pipelined dispatch from here on runs under the sync check
     c3.CHECK_DISPATCH_SYNC = True
     phase_tiny_vgg(device)
@@ -1795,6 +2030,7 @@ def main() -> int:
     grpl = phase_tiny_grplasso(device)
     grpl_3c = phase_tiny_3c(device, grplasso=True)
     vgg, wall, vgg_res = phase_main_path(device)
+    vgg_f32 = phase_vgg16_f32_leg(device, vgg_res, wall)
     r50, r50_wall, r50_res = phase_resnet50(device)
     v3c, v3c_wall, _ = phase_vgg16_3c(device)
     phase_sequential("main", _prune_vgg16, vgg_res, _check_vgg_counts)
@@ -1804,7 +2040,8 @@ def main() -> int:
     addbn = phase_addbn_3c(device)
     digits = acc["launches"]
     xcp = phase_xception(device)
-    frcnn = phase_frcnn(device)
+    frcnn, frcnn_res = phase_frcnn(device)
+    frcnn_f32 = phase_frcnn_f32_leg(device, frcnn_res)
     fitfc = phase_vgg16_fitfc(device)
     autodet = phase_vgg16_autodet(device)
     if args.profile:
@@ -1822,8 +2059,9 @@ def main() -> int:
     print(f"[train] phase numbers -> {WORK / 'train_phases.json'}")
     (WORK / "prune_phases.json").write_text(json.dumps(
         {"card": card, "xception_2x": xcp, "frcnn_600_5x": frcnn,
-         "vgg16_fitfc_4x": fitfc, "vgg16_autodet_5x": autodet,
-         "k3": group}, indent=1, default=str))
+         "frcnn_600_5x_f32": frcnn_f32, "vgg16_5x_f32": vgg_f32,
+         "bf16_conv": bf16_conv, "vgg16_fitfc_4x": fitfc,
+         "vgg16_autodet_5x": autodet, "k3": group}, indent=1, default=str))
     print(card)
     source = "channel_pruning_tpu_torch/csrc/lasso_cd.cu"
     by_path = {"vgg16_5x": vgg, "resnet50_2x": r50, "vgg16_3c_4x": v3c,

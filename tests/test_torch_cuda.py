@@ -308,3 +308,63 @@ def test_synthetic_chunks_from_the_pinned_set_equal_fresh_draws(card):
     assert src.pinned.is_pinned()
     assert torch.equal(inputs_mod.device_chunk(src, 0, 5, "cpu"),
                        torch.cat([src.batch(i) for i in range(5)]))
+
+
+def _tf32_flags():
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,hw,o,k,s,group", [
+    (16, 64, 56, 64, 3, 1, 1), (8, 256, 28, 512, 3, 1, 1),
+    (4, 512, 38, 18, 1, 1, 1), (8, 64, 31, 128, 3, 2, 1),
+    (8, 64, 28, 64, 3, 1, 64)],
+    ids=["vgg_3x3", "vgg_3x3_wide", "rpn_1x1", "stride2", "depthwise"])
+def test_bf16_conv_equals_f32_conv_of_rounded_operands(card, n, c, hw, o, k,
+                                                       s, group):
+    """The bf16 conv on the card (cuDNN with TF32 for that call where the
+    shape is exact, else TF32 off) equals the f32 conv of the bf16-rounded
+    operands within 1e-5 of its largest |value|: the JAX package's
+    semantics, not the native bf16 conv's rounded output."""
+    from channel_pruning_tpu_torch.ops import forward
+
+    gen = torch.Generator(device=card).manual_seed(n + c + o)
+    x = torch.randn((n, c, hw, hw), generator=gen, device=card).relu()
+    w = torch.randn((o, c // group, k, k), generator=gen, device=card)
+    b = torch.randn((o,), generator=gen, device=card)
+    geo = dict(kh=k, kw=k, sh=s, sw=s, ph=k // 2, pw=k // 2, group=group)
+    got = forward._conv2d(x, w, b, geo, torch.bfloat16)
+    route = forward.conv_route(x.shape, w.shape, geo, torch.bfloat16, card)
+    with forward.tf32_convs(False):
+        ref = torch.nn.functional.conv2d(
+            x.bfloat16().float(), w.bfloat16().float(), b, stride=s,
+            padding=k // 2, groups=group)
+    err = float((got - ref).abs().max() / ref.abs().max())
+    assert got.dtype == torch.float32 and route in ("tf32", "f32")
+    assert err <= forward.EXACT_RTOL, (route, err)
+    native = torch.nn.functional.conv2d(x.bfloat16(), w.bfloat16(), b.bfloat16(),
+                                        stride=s, padding=k // 2, groups=group)
+    assert float((native.float() - ref).abs().max() / ref.abs().max()) > err
+    assert _tf32_flags() == (False, False)
+
+
+@pytest.mark.cuda
+def test_bf16_conv_restores_the_tf32_flags(card):
+    """TF32 is on for the bf16 conv's own call only: the process-wide
+    `device.fp32_solver` setting holds before, after, and after a conv
+    that raises; the route is decided once a shape."""
+    from channel_pruning_tpu_torch.ops import forward
+
+    geo = dict(kh=3, kw=3, sh=1, sw=1, ph=1, pw=1, group=1)
+    x = torch.randn((2, 16, 12, 12), device=card)
+    w = torch.randn((8, 16, 3, 3), device=card)
+    assert _tf32_flags() == (False, False)
+    forward._conv2d(x, w, None, geo, torch.bfloat16)
+    key = forward._route_key(x.shape, w.shape, geo, torch.bfloat16, card)
+    assert forward._ROUTES[key] in ("tf32", "f32")
+    assert _tf32_flags() == (False, False)
+    assert torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark
+    with pytest.raises(RuntimeError):
+        forward._conv2d(x, w[:, :5], None, geo, torch.bfloat16)
+    assert _tf32_flags() == (False, False)

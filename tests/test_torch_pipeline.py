@@ -199,13 +199,15 @@ def test_cache_refuses_jax_synthetic_spec(tmp_path):
 
 
 def test_unported_options_raise(setup):
-    """bf16 replays stay refused until a parity run on the card; the fused
-    search is ported and runs."""
+    """Every option of the JAX package's solve runs in the port: bf16
+    replays (the sequential pass here; the JAX package's masks, in
+    tests/test_torch_bf16.py) and the fused search."""
     (g, _), params, cfg, _, cache = setup
-    with pytest.raises(NotImplementedError, match="solve.dtype"):
-        c3.solve_prune(g, params, cache,
-                       cfg.replace_nested("solve.dtype", "bfloat16"),
-                       channel_targets=TARGETS, device="cpu")
+    res = c3.solve_prune(g, params, cache,
+                         cfg.replace_nested("solve.dtype", "bfloat16"),
+                         channel_targets=TARGETS, device="cpu", verbose=False)
+    assert not res.pipelined and len(res.selections) == len(TARGETS)
+    assert all(np.isfinite(r.rmse_after) for r in res.reports)
     res = c3.solve_prune(g, params, cache,
                          cfg.replace_nested("solve.fused_search", "True"),
                          channel_targets=TARGETS, device="cpu", verbose=False)

@@ -494,14 +494,15 @@ def test_cli_prune_runs_each_knob(tmp_path, knob, pipelined):
 
 
 def test_cli_prune_refuses_bf16_before_the_freeze(tmp_path, monkeypatch):
-    """`solve.dtype=bfloat16` is the one option the port still refuses, and
-    it does so before the calibration set is frozen."""
+    """A `solve.dtype` the replays do not run (float16: neither package
+    replays in it) is refused before the calibration set is frozen;
+    bfloat16 runs (tests/test_torch_bf16.py)."""
     def no_freeze(*a, **k):
         raise AssertionError("the freeze ran before the refusal")
 
     monkeypatch.setattr(sampler, "freeze", no_freeze)
-    with pytest.raises(NotImplementedError, match="solve.dtype"):
-        _cli_prune(tmp_path, "--set", "solve.dtype=bfloat16")
+    with pytest.raises(ValueError, match="solve.dtype=float16"):
+        _cli_prune(tmp_path, "--set", "solve.dtype=float16")
     assert not list(tmp_path.glob("frozen_*"))
     cfg = default_config()
     for knob in ("dic.fitfc", "solve.autodet", "dic.grplasso"):

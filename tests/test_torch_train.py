@@ -355,7 +355,11 @@ def test_compute_dtype_runs_convs_in_bf16():
     from channel_pruning_tpu.ops.forward import run_graph as jax_run_graph
     want = jax_run_graph(g_j, to_device_params(params), {"data": jnp.asarray(x)},
                          compute_dtype=jnp.bfloat16)[0]["prob"]
-    np.testing.assert_allclose(bf.numpy(), np.asarray(want), atol=2e-2)
+    # the JAX conv's semantics (bf16 operands, f32 products, sums and
+    # outputs): only summation order separates the two
+    want = np.asarray(want)
+    np.testing.assert_allclose(bf.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
