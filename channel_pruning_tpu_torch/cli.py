@@ -179,6 +179,21 @@ def _ranks(graph, args) -> dict[str, int]:
             for c in graph.convs[1:]}
 
 
+def _solver_mesh(device):
+    """Every visible card when there is more than one (the JAX CLI's
+    `_solver_mesh`): the freeze and the solve split images and solver rows
+    over them. None on one card or the CPU."""
+    import torch
+
+    from channel_pruning_tpu_torch.parallel import mesh as mesh_mod
+
+    if device.type == "cuda" and torch.cuda.device_count() > 1:
+        mesh = mesh_mod.make_mesh()
+        print(f"[prune] sharding solver reductions over {mesh.size} devices")
+        return mesh
+    return None
+
+
 def cmd_prune(args):
     from channel_pruning_tpu_torch.io import caffe as cio
     from channel_pruning_tpu_torch.pipeline.checkpoint import SolveCheckpoint
@@ -207,6 +222,9 @@ def cmd_prune(args):
           f"replays in {cfg.solve.dtype}")
 
     graph, params = c3.preprocess(graph, params)
+    mesh = _solver_mesh(device)    # once: the freeze and the solve share it
+    if mesh is not None:
+        device = mesh.lead
     if args.mode == "prune":
         targets, input_targets, cfg = _targets(graph, args, cfg)
     else:
@@ -233,7 +251,7 @@ def cmd_prune(args):
                        share_key=resnet_share_key(graph) if graph.sums else None,
                        labels=labels,
                        chunk_batches=max(cfg.sample.freeze_device_batch
-                                         // inputs.shape[1], 1))
+                                         // inputs.shape[1], 1), mesh=mesh)
         del dparams
         cache.save(cache_path)
         print(f"[prune] froze calibration cache -> {cache_path}")
@@ -244,11 +262,11 @@ def cmd_prune(args):
         ck = SolveCheckpoint(wd / "solve_state_cp.pkl", every=3)
         res = c3.solve_prune(graph, params, cache, cfg, channel_targets=targets,
                              input_targets=input_targets, device=device,
-                             checkpoint=ck)
+                             checkpoint=ck, mesh=mesh)
     else:
         ck = SolveCheckpoint(wd / "solve_state_3c.pkl", every=1)
         res = c3.solve_3c(graph, params, cache, cfg, ranks, device=device,
-                          checkpoint=ck)
+                          checkpoint=ck, mesh=mesh)
     phases["solve"] = time.perf_counter() - t
     print(res.summary())
     orig = flops.total_flops(graph, include_fc=False)
@@ -416,19 +434,28 @@ def _synthetic(args, graph):
 
 
 def cmd_finetune(args):
-    """SGD/Nesterov finetune on one device (the reference's `caffe train`),
-    exported as `ft_<name>`. Prints the steady-state ms/step (from the
-    second step on), images/s, peak device memory and the loss. Returns
-    the final TrainState."""
+    """SGD/Nesterov finetune (the reference's `caffe train`), exported as
+    `ft_<name>`: data parallel over the largest number of visible cards
+    that divides `--batch` (the JAX CLI's rule), else on one device.
+    Prints the steady-state ms/step (from the second step on), images/s,
+    peak device memory and the loss. Returns the final TrainState."""
     import torch
 
     from channel_pruning_tpu_torch.device import resolve_device
     from channel_pruning_tpu_torch.io import caffe as cio
+    from channel_pruning_tpu_torch.parallel import mesh as mesh_mod
     from channel_pruning_tpu_torch.train import finetune as ft
     from channel_pruning_tpu_torch.utils.config import FinetuneConfig
     from channel_pruning_tpu_torch.utils.profiling import precision_flags
 
     device = resolve_device(args.device)
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    while n_dev > 1 and args.batch % n_dev:
+        n_dev -= 1
+    mesh = mesh_mod.make_mesh(n_dev) if n_dev > 1 else None
+    if mesh is not None:
+        device = mesh.lead
+        print(f"[finetune] data parallel over {n_dev} devices")
     graph, params = _load_model(args)
     cfg = FinetuneConfig(base_lr=args.lr, batch_size=args.batch,
                          stepsize=args.lr_step or 200_000, gamma=args.gamma,
@@ -445,7 +472,8 @@ def cmd_finetune(args):
     t0 = time.perf_counter()
     state = ft.finetune(graph, params, data, cfg, device=device,
                         max_steps=args.steps, snapshot_dir=str(wd / "snapshots"),
-                        seed=args.seed, heads=heads, teacher=teacher)
+                        seed=args.seed, heads=heads, teacher=teacher,
+                        mesh=mesh)
     ms = ft.step_ms(state)
     wall = time.perf_counter() - t0
     losses = torch.stack([m["loss"] for m in state.history]).cpu().numpy()

@@ -65,6 +65,9 @@ def iter_fields(buf: memoryview) -> Iterator[tuple[int, int, object]]:
             pos += 8
         elif wt == 2:
             ln, pos = _read_varint(buf, pos)
+            if pos + ln > n:
+                raise ValueError(f"field {fnum}: {ln} bytes declared, "
+                                 f"{n - pos} left (truncated file?)")
             val = buf[pos:pos + ln]
             pos += ln
         elif wt == 5:
@@ -146,10 +149,33 @@ _V1_TYPES = {
 }
 
 
+# loads that took the Python walk because the native indexer returned -1
+native_fallbacks = 0
+
+
 def load_caffemodel(path: str | Path) -> tuple[str, list[CaffeLayerBlobs]]:
-    """Return (net name, ordered layer blob records) from a .caffemodel,
-    by a pure-Python field walk (packed float payloads are wrapped with
-    np.frombuffer)."""
+    """Return (net name, ordered layer blob records) from a .caffemodel.
+
+    The native wire indexer first (io/native_caffemodel, built with g++ at
+    first use); the Python walk `load_caffemodel_python` only where the
+    indexer returns -1 for a construct it does not support, and each such
+    load counts in `native_fallbacks`. A failed build or load of the
+    native library raises."""
+    global native_fallbacks
+    from channel_pruning_tpu_torch.io.native_caffemodel import \
+        load_caffemodel_native
+
+    res = load_caffemodel_native(path)
+    if res is not None:
+        return res
+    native_fallbacks += 1
+    return load_caffemodel_python(path)
+
+
+def load_caffemodel_python(path: str | Path
+                           ) -> tuple[str, list[CaffeLayerBlobs]]:
+    """`load_caffemodel` by a pure-Python field walk (packed float payloads
+    are wrapped with np.frombuffer)."""
     raw = memoryview(Path(path).read_bytes())
     net_name = ""
     layers: list[CaffeLayerBlobs] = []

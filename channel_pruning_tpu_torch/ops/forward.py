@@ -201,23 +201,31 @@ def _layer_seed(step_seed: int, salt: int) -> int:
         1, np.uint64)[0] & 0x7FFF_FFFF_FFFF_FFFF)
 
 
-def _dropout(l: Layer, x: torch.Tensor, step_seed: int) -> torch.Tensor:
+def _dropout(l: Layer, x: torch.Tensor, step_seed: int,
+             rows: tuple[int, int, int] | None = None) -> torch.Tensor:
     """Keep each element with probability 1 - ratio and scale the kept ones
     by 1/keep. The layer's generator is seeded from the pass's seed and
     crc32 of the layer's name (not hash(), which Python salts per process),
-    so two dropout layers draw different masks and a seed reproduces them."""
+    so two dropout layers draw different masks and a seed reproduces them.
+    `rows` (lo, hi, total): x is rows [lo, hi) of a batch of `total`; the
+    mask is drawn for the whole batch and sliced, so a batch split over
+    shards drops what the whole batch drops on one device of that type."""
     keep = 1.0 - float(l.attr("dropout_ratio", 0.5))
     salt = zlib.crc32(l.name.encode()) & 0x7FFFFFFF
     gen = torch.Generator(device=x.device).manual_seed(_layer_seed(step_seed, salt))
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    lo, hi, total = rows or (0, x.shape[0], x.shape[0])
+    mask = torch.rand((total,) + tuple(x.shape[1:]), generator=gen,
+                      device=x.device)[lo:hi] < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def compute_layer(l: Layer, env: dict[str, torch.Tensor], params: Params, *,
                   step_seed: int | None = None,
-                  compute_dtype: torch.dtype | None = None) -> None:
+                  compute_dtype: torch.dtype | None = None,
+                  dropout_rows: tuple[int, int, int] | None = None) -> None:
     """Evaluate one layer into env (tensor name -> NCHW tensor). Dropout
-    draws a mask only with a `step_seed` (run_graph's train mode)."""
+    draws a mask only with a `step_seed` (run_graph's train mode), for
+    `dropout_rows` of a larger batch when given (see `_dropout`)."""
     t = l.type
     if t in _DATA_TYPES:
         return
@@ -255,7 +263,8 @@ def compute_layer(l: Layer, env: dict[str, torch.Tensor], params: Params, *,
         out = x * _channel(p["W"], x.ndim)
         env[top] = out + _channel(p["b"], x.ndim) if "b" in p else out
     elif t == LT.DROPOUT:
-        env[top] = x if step_seed is None else _dropout(l, x, step_seed)
+        env[top] = x if step_seed is None else _dropout(l, x, step_seed,
+                                                        dropout_rows)
     elif t == LT.SOFTMAX:
         env[top] = torch.softmax(x, dim=1)
     elif t == LT.FLATTEN:
@@ -280,23 +289,33 @@ def run_graph(graph: Graph, params: Params, inputs: Mapping[str, torch.Tensor],
               *, capture: Sequence[str] = (), train: bool = False,
               generator: torch.Generator | None = None, compute_dtype=None,
               capture_transforms: Mapping[str, Any] | None = None,
+              step_seed: int | None = None,
+              dropout_rows: tuple[int, int, int] | None = None,
               ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
     """Interpret the graph; returns (outputs, captures), all NCHW.
 
     `train=True` records gradients and, with a `generator`, applies dropout
-    (one seed is drawn from the generator per pass); otherwise the pass
-    runs under no_grad and dropout is the identity."""
-    step_seed = None
-    if train and generator is not None:
-        step_seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
-                                      device=generator.device))
+    (one seed is drawn from the generator per pass, or `step_seed` given
+    by a caller that drew it: the shards of a batch share theirs, and
+    `dropout_rows` places each in the batch); otherwise the pass runs
+    under no_grad and dropout is the identity."""
+    if train and generator is not None and step_seed is None:
+        step_seed = draw_step_seed(generator)
+    if not train:
+        step_seed = None
     with torch.set_grad_enabled(train):
         return _run(graph, params, inputs, capture, capture_transforms,
-                    step_seed, as_dtype(compute_dtype))
+                    step_seed, as_dtype(compute_dtype), dropout_rows)
+
+
+def draw_step_seed(generator: torch.Generator) -> int:
+    """The seed of one train pass's dropout masks."""
+    return int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                             device=generator.device))
 
 
 def _run(graph, params, inputs, capture, capture_transforms, step_seed,
-         compute_dtype):
+         compute_dtype, dropout_rows=None):
     env: dict[str, torch.Tensor] = {spec.name: inputs[spec.name]
                                     for spec in graph.inputs}
     transforms = capture_transforms or {}
@@ -306,7 +325,7 @@ def _run(graph, params, inputs, capture, capture_transforms, step_seed,
     last_use = {b: i for i, l in enumerate(graph.layers) for b in l.bottoms}
     for i, l in enumerate(graph.layers):
         compute_layer(l, env, params, step_seed=step_seed,
-                      compute_dtype=compute_dtype)
+                      compute_dtype=compute_dtype, dropout_rows=dropout_rows)
         # capture at the point of production, before an in-place (aliased
         # top) successor overwrites the name
         for tname in l.tops:

@@ -40,7 +40,7 @@ def build_channel_response(X: torch.Tensor, W2: torch.Tensor) -> torch.Tensor:
     Returns Z: (N*n, c) with Z[:, i] = vec(X[:, i] · W2[:, i]ᵀ)."""
     N, c = X.shape[0], X.shape[1]
     n = W2.shape[0]
-    xr = X.reshape(N, c, -1).permute(1, 0, 2)          # (c, N, khkw)
+    xr = X.flatten(2).permute(1, 0, 2)                 # (c, N, khkw)
     wr = W2.reshape(n, c, -1).permute(1, 2, 0)         # (c, khkw, n)
     return torch.bmm(xr, wr).reshape(c, N * n).T
 
@@ -407,18 +407,29 @@ def select_channels(X: torch.Tensor, W2: torch.Tensor, Y: torch.Tensor,
                     rank: int, *, alpha0: float = 1e-3, rank_tol: float = 0.1,
                     subsample: int = 400, seed: int = 0, grid_size: int = 16,
                     max_rounds: int = 8, n_sweeps: int = 200,
-                    prefer: str = "top", fused: bool = False
+                    prefer: str = "top", fused: bool = False, mesh=None
                     ) -> tuple[np.ndarray, float, int]:
     """End-to-end selection for one layer. X: (N, c, kh, kw) patches,
     W2: (n, c, kh, kw), Y: (N, n) targets, all on one device. The row
     subsample is numpy's `default_rng(seed).integers`, so both packages use
-    the same rows. `fused` searches with `fused_search_alpha`."""
+    the same rows. `fused` searches with `fused_search_alpha`. With a
+    `mesh` of more than one shard the Gram is reduced over row shards
+    (parallel/sharded); the search runs once, on the lead device."""
     Xs, Ys = row_subsample(X, Y, subsample, seed)
     Z = build_channel_response(Xs, W2.float())
-    gram = lasso_gram(Z, Ys.reshape(-1))
+    gram = _gram(Z, Ys.reshape(-1), mesh)
     search = fused_search_alpha if fused else search_alpha
     return search(gram, rank, rank_tol, alpha0=alpha0, grid_size=grid_size,
                   max_rounds=max_rounds, n_sweeps=n_sweeps, prefer=prefer)
+
+
+def _gram(Z: torch.Tensor, y: torch.Tensor, mesh) -> LassoGram:
+    """lasso_gram, or its row-sharded reduction under a mesh."""
+    if mesh is not None and mesh.size > 1:
+        from channel_pruning_tpu_torch.parallel.sharded import \
+            sharded_lasso_gram
+        return sharded_lasso_gram(Z, y, mesh)
+    return lasso_gram(Z, y)
 
 
 def row_subsample(X: torch.Tensor, Y: torch.Tensor, subsample: int,
@@ -433,7 +444,7 @@ def row_subsample(X: torch.Tensor, Y: torch.Tensor, subsample: int,
 
 def select_channels_fixed(X: torch.Tensor, W2: torch.Tensor, Y: torch.Tensor,
                           alpha: float, *, subsample: int = 400,
-                          seed: int = 0, n_sweeps: int = 200
+                          seed: int = 0, n_sweeps: int = 200, mesh=None
                           ) -> tuple[np.ndarray, float, int]:
     """Fixed-alpha, support-free selection (the reference's autodet mode):
     one LASSO solve at `alpha` on the row subsample, keeping whatever
@@ -441,7 +452,7 @@ def select_channels_fixed(X: torch.Tensor, W2: torch.Tensor, Y: torch.Tensor,
     computes alpha = alpha0 / c**layeralpha."""
     Xs, Ys = row_subsample(X, Y, subsample, seed)
     Z = build_channel_response(Xs, W2.float())
-    gram = lasso_gram(Z, Ys.reshape(-1))
+    gram = _gram(Z, Ys.reshape(-1), mesh)
     beta = cd_solve(gram.G, gram.b, alpha * gram.n_samples, n_sweeps=n_sweeps)
     mask = support_mask(beta[None, :])[0].cpu().numpy()
     return mask, float(alpha), int(mask.sum())
@@ -497,12 +508,18 @@ def select_channels_group(X: torch.Tensor, Y: torch.Tensor, rank: int, *,
                           alpha0: float = 1e-3, rank_tol: float = 0.1,
                           subsample: int = 400, seed: int = 0,
                           grid_size: int = 16, max_rounds: int = 8,
-                          n_sweeps: int = 200, prefer: str = "top"
-                          ) -> tuple[np.ndarray, float, int]:
+                          n_sweeps: int = 200, prefer: str = "top",
+                          mesh=None) -> tuple[np.ndarray, float, int]:
     """Group-lasso channel selection for 1x1 and FC consumers: X (N, c[, 1,
-    1]) and Y (N, n) on one device, the row subsample of `select_channels`."""
+    1]) and Y (N, n) on one device, the row subsample of `select_channels`;
+    under a `mesh` the Gram is reduced over row shards."""
     Xs, Ys = row_subsample(X.reshape(X.shape[0], -1), Y, subsample, seed)
-    gram = group_gram(Xs, Ys)
+    if mesh is not None and mesh.size > 1:
+        from channel_pruning_tpu_torch.parallel.sharded import \
+            sharded_group_gram
+        gram = sharded_group_gram(Xs, Ys, mesh)
+    else:
+        gram = group_gram(Xs, Ys)
     return search_alpha_group(gram, rank, rank_tol, alpha0=alpha0,
                               grid_size=grid_size, max_rounds=max_rounds,
                               n_sweeps=n_sweeps, prefer=prefer)

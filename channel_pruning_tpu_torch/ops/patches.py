@@ -5,8 +5,10 @@ Row-order contract: for a chunk of B images and P points, rows are
 point-major, row = p * B + b. The grouped variants take G chunks of B
 images stacked along the image axis with per-chunk points (G, P) and
 return the chunks' rows concatenated in order (row = g*P*B + p*B + b).
-Pure indexing and a 0/1 mask multiply, so the outputs are bit-equal to the
-JAX package's.
+The per-image variants take each image's own points and return (n, P, ...)
+for a shard of a chunk's images; `image_rows` puts the shards' gathers,
+concatenated, back in the grouped order. Pure indexing and a 0/1 mask
+multiply, so the outputs are bit-equal to the JAX package's.
 """
 from __future__ import annotations
 
@@ -82,3 +84,45 @@ def gather_patches_grouped(v: torch.Tensor, ys: torch.Tensor,
     mask = (rmask[:, :, :, None] & cmask[:, :, None, :]).to(v.dtype)
     sub = sub * mask[..., None, None]
     return sub.permute(0, 1, 4, 5, 2, 3).reshape(-1, v.shape[1], kh, kw)
+
+
+def gather_channels_per_image(v: torch.Tensor, ys: torch.Tensor,
+                              xs: torch.Tensor) -> torch.Tensor:
+    """v: (n, C, H, W), ys/xs: (n, P) each image's own points -> (n, P, C)
+    (the form an image-sharded capture takes before `image_rows`)."""
+    ii = torch.arange(v.shape[0], device=v.device)[:, None]
+    return v[ii, :, ys, xs]
+
+
+def gather_patches_per_image(v: torch.Tensor, ys: torch.Tensor,
+                             xs: torch.Tensor, kernel: tuple[int, int],
+                             stride: tuple[int, int], pad: tuple[int, int]
+                             ) -> torch.Tensor:
+    """v: (n, C, H, W), ys/xs: (n, P) each image's own output points ->
+    (n, P, C, kh, kw), with the clamp + mask of `gather_patches_grouped`
+    (so the values are bit-equal to it)."""
+    kh, kw = kernel
+    sh, sw = stride
+    ph, pw = pad
+    H, W = v.shape[2], v.shape[3]
+    dev = v.device
+    rows = (ys * sh - ph)[:, :, None] + torch.arange(kh, device=dev)
+    cols = (xs * sw - pw)[:, :, None] + torch.arange(kw, device=dev)
+    rmask = (rows >= 0) & (rows < H)                        # (n, P, kh)
+    cmask = (cols >= 0) & (cols < W)                        # (n, P, kw)
+    rc = rows.clamp(0, H - 1)[:, :, :, None]
+    cc = cols.clamp(0, W - 1)[:, :, None, :]
+    ii = torch.arange(v.shape[0], device=dev)[:, None, None, None]
+    sub = v[ii, :, rc, cc]                              # (n, P, kh, kw, C)
+    mask = (rmask[:, :, :, None] & cmask[:, :, None, :]).to(v.dtype)
+    sub = sub * mask[..., None]
+    return sub.permute(0, 1, 4, 2, 3)
+
+
+def image_rows(t: torch.Tensor, batch: int) -> torch.Tensor:
+    """Per-image gathers (G*B, P, ...) of G chunks of B images -> the rows
+    of the grouped gathers, row = g*P*B + p*B + b."""
+    G = t.shape[0] // batch
+    rest = tuple(t.shape[2:])
+    return t.reshape((G, batch) + tuple(t.shape[1:])).transpose(1, 2) \
+        .reshape((-1,) + rest)

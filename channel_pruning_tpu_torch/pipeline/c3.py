@@ -36,6 +36,7 @@ from channel_pruning_tpu_torch.graph.ir import Graph, LT
 from channel_pruning_tpu_torch.utils.config import Config
 from channel_pruning_tpu_torch.convert import params_to_torch
 from channel_pruning_tpu_torch.ops import lowrank
+from channel_pruning_tpu_torch.parallel import mesh as mesh_mod
 from channel_pruning_tpu_torch.pipeline import prune as prune_mod
 from channel_pruning_tpu_torch.sampling import rolling as rolling_mod
 from channel_pruning_tpu_torch.sampling import sampler as sampling
@@ -207,23 +208,31 @@ def plan_uniform_targets(graph: Graph, speed_ratio: float,
 
 
 def _maybe_rolling(g_run: Graph, cache: sampling.FrozenCache, device,
-                   compute_dtype: str | None = None, budget: int = 8 << 30):
+                   compute_dtype: str | None = None, budget: int = 8 << 30,
+                   mesh=None):
     """The O(L) rolling frontier when the whole-set activation cut fits the
     budget: the chain variant for plain nets, the DAG-cut variant for
     residual topologies. None means full replays per layer. The frontier
-    is f32 whatever `compute_dtype` its convs run in."""
+    is f32 whatever `compute_dtype` its convs run in. Under a mesh its
+    image axis is split over the shards, and the budget scales with the
+    mesh's distinct devices, not its shards: logical shards on one card
+    share that card's memory."""
     n_images = cache.n_batches * cache.batch_size
+    if mesh is not None:
+        budget *= len(mesh.distinct)
     if rolling_mod.is_chain(g_run):
         if rolling_mod.estimate_peak_bytes(g_run, n_images) > budget:
             return None
         return rolling_mod.RollingReplay(g_run, cache.inputs, device=device,
                                          plan=cache.plan,
-                                         compute_dtype=compute_dtype)
+                                         compute_dtype=compute_dtype,
+                                         mesh=mesh)
     if rolling_mod.estimate_cut_bytes(g_run, n_images) > budget:
         return None
     return rolling_mod.RollingReplayDAG(g_run, cache.inputs, device=device,
                                         plan=cache.plan,
-                                        compute_dtype=compute_dtype)
+                                        compute_dtype=compute_dtype,
+                                        mesh=mesh)
 
 
 def _replay_dtype(cfg: Config) -> str | None:
@@ -233,7 +242,7 @@ def _replay_dtype(cfg: Config) -> str | None:
 
 def _patches(roll, g_run: Graph, dev_run, cache: sampling.FrozenCache,
              conv: str, device, chunk: int, fallbacks: list[str],
-             compute_dtype: str | None = None) -> torch.Tensor:
+             compute_dtype: str | None = None, mesh=None) -> torch.Tensor:
     """`conv`'s input patches at its planned points: from the rolling
     frontier, or from a full replay where the frontier cannot serve them
     (the conv is then recorded in `fallbacks`)."""
@@ -247,7 +256,7 @@ def _patches(roll, g_run: Graph, dev_run, cache: sampling.FrozenCache,
     return sampling.sample_patches(g_run, dev_run, cache.inputs, conv,
                                    cache.plan, device=device,
                                    chunk_batches=chunk,
-                                   compute_dtype=compute_dtype)
+                                   compute_dtype=compute_dtype, mesh=mesh)
 
 
 def _residual_context(g_run: Graph, consumer_top: str):
@@ -340,7 +349,8 @@ def _pipelined_conv_pass(g_run: Graph, p_run, dev_run, g_out, p_out,
                          cfg: Config, channel_targets, roll, checkpoint,
                          resume_i: int, verbose: bool, device,
                          frontier_fallbacks: list[str],
-                         input_targets=None, residual_compensate: bool = True):
+                         input_targets=None, residual_compensate: bool = True,
+                         mesh=None):
     """The pipelined pass (port of the JAX package's `_pipelined_conv_pass`):
     each layer's device work (frontier advance, patch gather, target build
     and `_fused_layer_solve`) is queued with no host sync, behind the layer
@@ -353,7 +363,12 @@ def _pipelined_conv_pass(g_run: Graph, p_run, dev_run, g_out, p_out,
     zero-scattered reconstruction, so the next advance needs no upload.
     Each layer is solved at its own width (the JAX package pads to one
     width per kernel size only to compile once). Raises _PipelineDegenerate
-    when a layer needs the sequential path's fallbacks."""
+    when a layer needs the sequential path's fallbacks.
+
+    Under a `mesh` the frontier advances each shard's images on its device
+    and `_fused_layer_solve` takes X and Y split by rows (when N is a
+    multiple of the shard count), with the row subsample split per shard
+    before the loop: the layer's dispatch stays free of host syncs."""
     items = _layer_items(g_run, p_run, channel_targets, input_targets,
                          resume_i)
     if not items:
@@ -375,7 +390,10 @@ def _pipelined_conv_pass(g_run: Graph, p_run, dev_run, g_out, p_out,
     N = int(np.asarray(cache.feats[targets[items[0][1]][0]]).shape[0])
     n_sub = min(cfg.lasso.subsample_rows, max(N // 20, 1))
     rows = np.random.default_rng(cfg.sample.seed).integers(0, N, size=n_sub)
-    rows_d = torch.as_tensor(rows, device=device)
+    solve_mesh = mesh if mesh_mod.is_sharded(mesh) and N % mesh.size == 0 \
+        else None
+    rows_d = prune_mod.split_rows(rows, N, mesh) if solve_mesh is not None \
+        else torch.as_tensor(rows, device=device)
     pending: collections.deque = collections.deque()
 
     def drain_one():
@@ -455,7 +473,7 @@ def _pipelined_conv_pass(g_run: Graph, p_run, dev_run, g_out, p_out,
                 X.float(), W2d, Yd, rows_d, target, float(cfg.dic.rank_tol),
                 float(cfg.solve.alpha), cfg.lasso.grid_size,
                 cfg.lasso.max_rounds, cfg.lasso.n_sweeps, cfg.solve.band,
-                float(cfg.solve.ls_ridge))
+                float(cfg.solve.ls_ridge), mesh=solve_mesh)
             # the device-to-device running update: the next advance needs
             # no host round trip
             dev_run[consumer] = {"W": out.Wfull, "b": out.b}
@@ -485,7 +503,7 @@ def solve_prune(graph: Graph, params: Mapping[str, Mapping[str, np.ndarray]],
                 channel_targets: Mapping[str, int] | None = None,
                 input_targets: Mapping[str, int] | None = None,
                 residual_compensate: bool = True, *, device,
-                checkpoint=None, verbose: bool = True,
+                checkpoint=None, verbose: bool = True, mesh=None,
                 _no_pipeline: bool = False) -> SolveResult:
     """Whole-model channel pruning.
 
@@ -511,22 +529,34 @@ def solve_prune(graph: Graph, params: Mapping[str, Mapping[str, np.ndarray]],
 
     `checkpoint` is a pipeline.checkpoint.SolveCheckpoint; its
     writes are asynchronous, so an exception joins the one in flight before
-    it propagates (the last completed layer is on disk for the resume)."""
+    it propagates (the last completed layer is on disk for the resume).
+
+    A `mesh` (parallel/mesh) of more than one shard, whose lead takes the
+    place of `device`, splits the frontier's images and the solvers' row
+    reductions over its shards; the selections are the one-device ones."""
     try:
         return _solve_prune(graph, params, cache, cfg, channel_targets,
                             input_targets, residual_compensate, device,
-                            checkpoint, verbose, _no_pipeline)
+                            checkpoint, verbose, _no_pipeline, mesh)
     except BaseException:
         if checkpoint is not None:
             checkpoint.wait()
         raise
 
 
+def _lead(device, mesh) -> tuple[torch.device, object]:
+    """(the solve's device, the mesh or None): a mesh of more than one
+    shard replaces `device` with its lead."""
+    if mesh_mod.is_sharded(mesh):
+        return mesh.lead, mesh
+    return torch.device(device), None
+
+
 def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
                  residual_compensate, device, checkpoint, verbose,
-                 no_pipeline) -> SolveResult:
+                 no_pipeline, mesh) -> SolveResult:
     check_supported(graph, cfg)
-    device = torch.device(device)
+    device, mesh = _lead(device, mesh)
     g_run = graph
     p_run = {k: dict(v) for k, v in params.items()}
     g_out = graph
@@ -555,7 +585,7 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
                               device)
     feats_dev: dict[str, torch.Tensor] = {}   # ground truth, uploaded once
     cdt = _replay_dtype(cfg)       # the replays' convs; fitfc's capture f32
-    roll = _maybe_rolling(g_run, cache, device, cdt)
+    roll = _maybe_rolling(g_run, cache, device, cdt, mesh=mesh)
 
     # the fused single-task solve cannot serve a 1x1 consumer under group
     # lasso (select_and_reconstruct routes those to the group path), nor
@@ -573,7 +603,7 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
                 cache, cfg, channel_targets, roll, checkpoint, resume_i,
                 verbose, device, frontier_fallbacks,
                 input_targets=input_targets,
-                residual_compensate=residual_compensate)
+                residual_compensate=residual_compensate, mesh=mesh)
         except _PipelineDegenerate as exc:
             print(f"[pipeline] {exc}; restarting on the sequential path")
             roll = dev_run = None      # release the frontier before rebuilding
@@ -582,7 +612,7 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
                                input_targets=input_targets,
                                residual_compensate=residual_compensate,
                                device=device, checkpoint=checkpoint,
-                               verbose=verbose, _no_pipeline=True)
+                               verbose=verbose, mesh=mesh, _no_pipeline=True)
         pipelined = True
 
     items = [] if pipelined else _layer_items(g_run, p_run, channel_targets,
@@ -591,7 +621,7 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
         n_in = p_run[consumer]["W"].shape[1]
         t0 = time.perf_counter()
         X = _patches(roll, g_run, dev_run, cache, consumer, device, chunk,
-                     frontier_fallbacks, cdt)
+                     frontier_fallbacks, cdt, mesh)
         top = g_run.layer(consumer).tops[0]
         b2 = torch.as_tensor(np.asarray(p_run[consumer].get(
             "b", np.zeros(p_run[consumer]["W"].shape[0], np.float32)),
@@ -615,7 +645,7 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
                        sampling.sample_features(
                            g_run, dev_run, cache.inputs, cache.plan, others,
                            device=device, chunk_batches=chunk,
-                           compute_dtype=cdt).items()}
+                           compute_dtype=cdt, mesh=mesh).items()}
             Y = _ground_truth(feats_dev, cache, e_top, device) - b2
             for o in others:
                 Y = Y - cur[o]
@@ -632,7 +662,7 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
             ridge=cfg.solve.ls_ridge, seed=cfg.sample.seed,
             group=cfg.dic.grplasso, prefer=cfg.solve.band,
             fused=cfg.solve.fused_search, autodet=cfg.solve.autodet,
-            layeralpha=cfg.dic.layeralpha)
+            layeralpha=cfg.dic.layeralpha, mesh=mesh)
         t_end = time.perf_counter()
 
         # running graph: zero-scattered reconstruction (static shapes)
@@ -665,7 +695,8 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
     if fitfc:
         g_out, p_out = _fitfc_pass(g_run, p_run, dev_run, g_out, p_out,
                                    selections, reports, cache, cfg,
-                                   channel_targets, device, chunk, verbose)
+                                   channel_targets, device, chunk, verbose,
+                                   mesh)
     return SolveResult(graph=g_out, params=p_out, reports=reports,
                        selections=selections,
                        frontier_fallbacks=frontier_fallbacks,
@@ -674,7 +705,8 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
 
 def _fitfc_pass(g_run: Graph, p_run, dev_run, g_out: Graph, p_out,
                 selections, reports, cache: sampling.FrozenCache, cfg: Config,
-                channel_targets, device, chunk: int, verbose: bool):
+                channel_targets, device, chunk: int, verbose: bool,
+                mesh=None):
     """fitfc (the reference's dic.fitfc): prune the last conv's outputs
     through the first FC layer's inputs. The FC's input is captured densely
     (one row per image) from the pruned running net, its weight is viewed
@@ -690,8 +722,8 @@ def _fitfc_pass(g_run: Graph, p_run, dev_run, g_out: Graph, p_out,
             continue
         t0 = time.perf_counter()
         dense = sampling.sample_dense(g_run, dev_run, cache.inputs, (bottom,),
-                                      device=device,
-                                      chunk_batches=chunk)[bottom]
+                                      device=device, chunk_batches=chunk,
+                                      mesh=mesh)[bottom]
         Wfc = np.asarray(p_run[fc]["W"], np.float32)
         n_in = dense.shape[1]
         Wr = Wfc.reshape(Wfc.shape[0], n_in, *dense.shape[2:])
@@ -707,7 +739,8 @@ def _fitfc_pass(g_run: Graph, p_run, dev_run, g_out: Graph, p_out,
             alpha0=cfg.solve.alpha, subsample=cfg.lasso.subsample_rows,
             n_sweeps=cfg.lasso.n_sweeps, grid_size=cfg.lasso.grid_size,
             max_rounds=cfg.lasso.max_rounds, ridge=cfg.solve.ls_ridge,
-            seed=cfg.sample.seed, group=True, prefer=cfg.solve.band)
+            seed=cfg.sample.seed, group=True, prefer=cfg.solve.band,
+            mesh=mesh)
         t_end = time.perf_counter()
         # running graph: zero-scatter back into the flat FC weight
         p_run[fc] = {"W": _scatter_inputs(res.W, res.keep).reshape(Wfc.shape),
@@ -787,7 +820,8 @@ def ranks_for_speed(base_ranks: Mapping[str, int], speed_ratio: float,
 def solve_3c(graph: Graph, params: Mapping[str, Mapping[str, np.ndarray]],
              cache: sampling.FrozenCache, cfg: Config,
              ranks: Mapping[str, int], skip: tuple[str, ...] = ("conv1_1",),
-             *, device, checkpoint=None, verbose: bool = True) -> SolveResult:
+             *, device, checkpoint=None, verbose: bool = True,
+             mesh=None) -> SolveResult:
     """The whole-model 3C pass (reference R3, lib/net.py:1292-1471).
 
     Per conv, in order, skipping `skip` and convs without a rank:
@@ -807,10 +841,16 @@ def solve_3c(graph: Graph, params: Mapping[str, Mapping[str, np.ndarray]],
     Only conv parameters go to the device; the FC stack stays on the host.
     `checkpoint` (a pipeline.checkpoint.SolveCheckpoint) snapshots the state
     after every layer it is due on and resumes from it; an exception joins
-    the write in flight before it propagates."""
+    the write in flight before it propagates.
+
+    Under a `mesh` of more than one shard (its lead in place of `device`)
+    the frontier's images are split over the shards and the arms' Gram and
+    normal equations are row-sharded; X is gathered on the lead for the VH
+    refit and the ITQ loop, iterative solvers that a row-sharded sum would
+    send elsewhere (in the JAX package an arm flipped)."""
     try:
         return _solve_3c(graph, params, cache, cfg, ranks, skip, device,
-                         checkpoint, verbose)
+                         checkpoint, verbose, mesh)
     except BaseException:
         if checkpoint is not None:
             checkpoint.wait()
@@ -818,9 +858,9 @@ def solve_3c(graph: Graph, params: Mapping[str, Mapping[str, np.ndarray]],
 
 
 def _solve_3c(graph, params, cache, cfg, ranks, skip, device, checkpoint,
-              verbose) -> SolveResult:
+              verbose, mesh) -> SolveResult:
     check_supported(graph, cfg)
-    device = torch.device(device)
+    device, mesh = _lead(device, mesh)
     g_run = graph
     p_run = {k: dict(v) for k, v in params.items()}
     g_out = graph
@@ -857,11 +897,12 @@ def _solve_3c(graph, params, cache, cfg, ranks, skip, device, checkpoint,
                               device)
     feats_dev: dict[str, torch.Tensor] = {}   # ground truth, uploaded once
     cdt = _replay_dtype(cfg)
-    roll = _maybe_rolling(g_run, cache, device, cdt)
+    roll = _maybe_rolling(g_run, cache, device, cdt, mesh=mesh)
 
     def patches(conv: str) -> torch.Tensor:
+        """X on the lead device, whole (the frontier gathers its rows)."""
         return _patches(roll, g_run, dev_run, cache, conv, device, chunk,
-                        frontier_fallbacks, cdt)
+                        frontier_fallbacks, cdt, mesh)
 
     def overwrite(conv: str, W: torch.Tensor, b: torch.Tensor) -> None:
         """The running conv's new weights: on the device as computed, and
@@ -987,7 +1028,8 @@ def _solve_3c(graph, params, cache, cfg, ranks, skip, device, checkpoint,
                 max_rounds=cfg.lasso.max_rounds, ridge=cfg.solve.ls_ridge,
                 seed=cfg.sample.seed, group=cfg.dic.grplasso,
                 prefer=cfg.solve.band, fused=cfg.solve.fused_search,
-                autodet=cfg.solve.autodet, layeralpha=cfg.dic.layeralpha)
+                autodet=cfg.solve.autodet, layeralpha=cfg.dic.layeralpha,
+                mesh=mesh)
             t_prune = time.perf_counter() - t2
             p_run[convnext] = {"W": _scatter_inputs(res.W, res.keep),
                                "b": res.b}

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from channel_pruning_tpu_torch.graph import rewrite
 from channel_pruning_tpu_torch.graph.ir import Graph, LT
 from channel_pruning_tpu_torch.ops import lasso, lstsq
+from channel_pruning_tpu_torch.parallel import mesh as mesh_mod
 
 _CHANNEL_PRESERVING = (LT.RELU, LT.POOL, LT.DROPOUT, LT.BN, LT.SCALE)
 
@@ -39,6 +40,31 @@ def _rel_error(X: torch.Tensor, W: torch.Tensor, b, Y: torch.Tensor) -> float:
     return float(_device_rel_error(X, W, b, Y))
 
 
+def _sharded_rel_error(Xs, W: torch.Tensor, b, Ys, mesh) -> torch.Tensor:
+    """`_device_rel_error` over row shards: each shard's squared residual
+    and squared target sums, reduced on the lead device in shard order."""
+    num, den = [], []
+    for X, Y in zip(Xs, Ys):
+        d = X.device
+        pred = torch.einsum("nchw,ochw->no", X, W.to(d)) + \
+            (b.to(d) if torch.is_tensor(b) else b)
+        num.append(torch.sum((Y - pred) ** 2))
+        den.append(torch.sum(Y ** 2))
+    count = sum(int(Y.numel()) for Y in Ys)
+    num = mesh_mod.reduce_sum(num, mesh) / count
+    den = mesh_mod.reduce_sum(den, mesh) / count
+    return torch.sqrt(num) / torch.sqrt(den + 1e-30)
+
+
+def split_rows(rows: np.ndarray, N: int, mesh) -> list[torch.Tensor]:
+    """The row subsample `rows` (indices into N rows split evenly over the
+    mesh, N a multiple of its size) as each shard's local indices, in the
+    order they appear in `rows`, on the shard's device."""
+    per = N // mesh.size
+    return [torch.as_tensor(rows[rows // per == s] - s * per, device=d)
+            for s, d in enumerate(mesh.devices)]
+
+
 class FusedLayer(NamedTuple):
     """`_fused_layer_solve`'s result, all device tensors."""
     mask: torch.Tensor          # (c,) bool, the kept input channels
@@ -51,9 +77,10 @@ class FusedLayer(NamedTuple):
 
 
 def _fused_layer_solve(Xd: torch.Tensor, W2d: torch.Tensor, Yd: torch.Tensor,
-                       rows: torch.Tensor, rank: int, rank_tol: float,
+                       rows, rank: int, rank_tol: float,
                        alpha0: float, grid_size: int, max_rounds: int,
-                       n_sweeps: int, prefer: str, ridge: float) -> FusedLayer:
+                       n_sweeps: int, prefer: str, ridge: float,
+                       mesh=None) -> FusedLayer:
     """The whole layer solve with no host read (port of the JAX package's
     one-program `_fused_layer_solve`): rMSE before, Z on the row subsample
     `rows`, the Gram, the fused alpha search, a full-width least-squares
@@ -62,9 +89,19 @@ def _fused_layer_solve(Xd: torch.Tensor, W2d: torch.Tensor, Yd: torch.Tensor,
     Zeroed columns give exactly-zero rows in the normal equations and
     exactly-zero coefficients under the jitter, so the fit equals the
     gather path's up to summation order, and `Wfull` is the zero-scattered
-    running weight itself."""
+    running weight itself.
+
+    Under a `mesh` of more than one shard, X and Y (N a multiple of its
+    size) are split by rows over it and `rows` is `split_rows`' per-shard
+    list: the rMSEs, Z, the Gram and the normal equations are per-shard
+    partials reduced on the lead device in shard order; the search runs
+    once, on the lead, and walks the same path as on one device."""
     N, c, kh, kw = Xd.shape
     n = W2d.shape[0]
+    if mesh is not None and mesh.size > 1:
+        return _fused_layer_solve_sharded(
+            Xd, W2d, Yd, rows, rank, rank_tol, alpha0, grid_size, max_rounds,
+            n_sweeps, prefer, ridge, mesh)
     rmse_before = _device_rel_error(Xd, W2d, 0.0, Yd)
     Xs, Ys = Xd.index_select(0, rows), Yd.index_select(0, rows)
     Z = lasso.build_channel_response(Xs, W2d)
@@ -80,6 +117,35 @@ def _fused_layer_solve(Xd: torch.Tensor, W2d: torch.Tensor, Yd: torch.Tensor,
     return FusedLayer(mask=found.mask, alpha=found.alpha, Wfull=Wfull, b=b,
                       rmse_before=rmse_before,
                       rmse_after=_device_rel_error(Xd, Wfull, b, Yd),
+                      grids=found.grids)
+
+
+def _fused_layer_solve_sharded(Xd, W2d, Yd, rows, rank, rank_tol, alpha0,
+                               grid_size, max_rounds, n_sweeps, prefer, ridge,
+                               mesh) -> FusedLayer:
+    """`_fused_layer_solve` over the mesh's row shards."""
+    from channel_pruning_tpu_torch.parallel.sharded import (
+        sharded_lasso_gram, sharded_lstsq)
+
+    N, c, kh, kw = Xd.shape
+    n = W2d.shape[0]
+    Xs, Ys = mesh_mod.shard_rows(Xd, mesh), mesh_mod.shard_rows(Yd, mesh)
+    W2s = [W2d.to(d) for d in mesh.devices]
+    rmse_before = _sharded_rel_error(Xs, W2d, 0.0, Ys, mesh)
+    Z = [lasso.build_channel_response(X.index_select(0, r), W)
+         for X, r, W in zip(Xs, rows, W2s)]
+    y = [Y.index_select(0, r).reshape(-1) for Y, r in zip(Ys, rows)]
+    gram = sharded_lasso_gram(Z, y, mesh)
+    found = lasso._fused_search(gram.G, gram.b, gram.n_samples, rank,
+                                rank_tol, alpha0, grid_size, max_rounds,
+                                n_sweeps, prefer)
+    colmask = found.mask[:, None].expand(c, kh * kw).reshape(-1).to(Xd.dtype)
+    W, b = sharded_lstsq([X.reshape(X.shape[0], -1) * colmask.to(X.device)
+                          for X in Xs], Ys, mesh, ridge=ridge)
+    Wfull = W.reshape(n, c, kh, kw)
+    return FusedLayer(mask=found.mask, alpha=found.alpha, Wfull=Wfull, b=b,
+                      rmse_before=rmse_before,
+                      rmse_after=_sharded_rel_error(Xs, Wfull, b, Ys, mesh),
                       grids=found.grids)
 
 
@@ -124,7 +190,7 @@ def select_and_reconstruct(X: torch.Tensor, W2: np.ndarray, Y: torch.Tensor,
                            fused: bool = False,
                            pad_to: tuple[int, int] | None = None,
                            autodet: bool = False,
-                           layeralpha: float = 1.0) -> PruneResult:
+                           layeralpha: float = 1.0, mesh=None) -> PruneResult:
     """One layer's LASSO selection + lstsq reconstruction.
 
     X: (N, c, kh, kw) consumer input patches of the current net and
@@ -140,7 +206,13 @@ def select_and_reconstruct(X: torch.Tensor, W2: np.ndarray, Y: torch.Tensor,
     `alter_iters` runs the alternating LASSO <-> least-squares refinement.
     `autodet=True` solves the LASSO once at alpha0 / c**layeralpha and keeps
     whatever support falls out: `rank` then only sizes the magnitude
-    fallback of an empty selection."""
+    fallback of an empty selection.
+
+    Under a `mesh` of more than one shard the fused solve takes X and Y
+    split by rows when N is a multiple of its size; on the sequential path
+    the selection's Gram and the refit's normal equations are row-sharded
+    (parallel/sharded). The search is the one-device search either way."""
+    sharded = mesh is not None and mesh.size > 1
     N, c, kh, kw = X.shape
     if autodet:
         fused = False       # one fixed-alpha solve: no band search, and
@@ -163,10 +235,12 @@ def select_and_reconstruct(X: torch.Tensor, W2: np.ndarray, Y: torch.Tensor,
             Xp = F.pad(Xp, (0, 0, 0, 0, 0, c_pad - c))
             W2p = F.pad(W2p, (0, 0, 0, 0, 0, c_pad - c, 0, n_pad - n_out))
             Yp = F.pad(Yp, (0, n_pad - n_out))
+        on_mesh = sharded and N % mesh.size == 0
         out = _fused_layer_solve(
-            Xp, W2p, Yp, torch.as_tensor(rows, device=Xd.device), rank,
+            Xp, W2p, Yp, split_rows(rows, N, mesh) if on_mesh
+            else torch.as_tensor(rows, device=Xd.device), rank,
             float(rank_tol), float(alpha0), grid_size, max_rounds, n_sweeps,
-            prefer, float(ridge))
+            prefer, float(ridge), mesh=mesh if on_mesh else None)
         keep = out.mask.cpu().numpy()[:c]
         if keep.sum() > 0:
             return PruneResult(
@@ -183,19 +257,19 @@ def select_and_reconstruct(X: torch.Tensor, W2: np.ndarray, Y: torch.Tensor,
         if autodet:
             keep, alpha, _ = lasso.select_channels_fixed(
                 Xd, W2d, Yd, alpha0 / c ** layeralpha, subsample=subsample,
-                seed=seed, n_sweeps=n_sweeps)
+                seed=seed, n_sweeps=n_sweeps, mesh=mesh)
         elif group_active:
             keep, alpha, _ = lasso.select_channels_group(
                 Xd.reshape(N, -1), Yd, rank, alpha0=alpha0,
                 rank_tol=rank_tol, subsample=subsample, seed=seed,
                 grid_size=grid_size, max_rounds=max_rounds,
-                n_sweeps=n_sweeps, prefer=prefer)
+                n_sweeps=n_sweeps, prefer=prefer, mesh=mesh)
         else:
             keep, alpha, _ = lasso.select_channels(
                 Xd, W2d, Yd, rank, alpha0=alpha0, rank_tol=rank_tol,
                 subsample=subsample, seed=seed, grid_size=grid_size,
                 max_rounds=max_rounds, n_sweeps=n_sweeps, prefer=prefer,
-                fused=fused)
+                fused=fused, mesh=mesh)
         if keep.sum() == 0:
             # degenerate layer (LASSO kills everything at every probed
             # alpha): magnitude selection keeps the graph well-formed
@@ -212,7 +286,11 @@ def select_and_reconstruct(X: torch.Tensor, W2: np.ndarray, Y: torch.Tensor,
     # least squares on the surviving channels over ALL rows
     keep_idx = torch.as_tensor(np.where(keep)[0], device=Xd.device)
     Xk = Xd.index_select(1, keep_idx).reshape(N, -1)
-    W, b = lstsq.fit_linear(Xk, Yd, ridge=ridge)
+    if sharded:
+        from channel_pruning_tpu_torch.parallel.sharded import sharded_lstsq
+        W, b = sharded_lstsq(Xk, Yd, mesh, ridge=ridge)
+    else:
+        W, b = lstsq.fit_linear(Xk, Yd, ridge=ridge)
     n_keep = int(keep.sum())
     Wfull = torch.zeros((Yd.shape[1], c, kh, kw), dtype=torch.float32,
                         device=Xd.device)

@@ -87,3 +87,16 @@ def device_chunk(inputs, lo: int, hi: int, device) -> torch.Tensor:
             np.asarray(inputs[lo:hi], np.float32)))
         x = x.reshape((-1,) + tuple(x.shape[2:]))
     return x.to(device)
+
+
+def device_images(inputs, lo: int, hi: int, device) -> torch.Tensor:
+    """Images [lo, hi) of the flattened (n_batches * bs) calibration set as
+    one (hi-lo, C, H, W) tensor on `device` (a shard's share of a chunk:
+    only its own images cross to its device)."""
+    bs = int(inputs.shape[1])
+    if isinstance(inputs, SyntheticInputs) and \
+            torch.device(device).type == "cuda" and inputs.pinned is not None:
+        return inputs.pinned[lo:hi].to(device, non_blocking=True)
+    b0, b1 = lo // bs, -(-hi // bs)
+    return device_chunk(inputs, b0, b1, "cpu")[lo - b0 * bs:hi - b0 * bs] \
+        .to(device)

@@ -30,9 +30,11 @@ import torch
 from channel_pruning_tpu_torch.graph.ir import Graph, LT, shapes_of
 from channel_pruning_tpu_torch.ops.forward import (compute_layer,
                                                   settle_conv_routes)
-from channel_pruning_tpu_torch.ops.patches import (gather_channels_grouped,
-                                                   gather_patches_grouped)
-from channel_pruning_tpu_torch.sampling.inputs import device_chunk
+from channel_pruning_tpu_torch.ops.patches import (
+    gather_channels_grouped, gather_channels_per_image, gather_patches_grouped,
+    gather_patches_per_image, image_rows)
+from channel_pruning_tpu_torch.parallel import mesh as mesh_mod
+from channel_pruning_tpu_torch.sampling.inputs import device_images
 from channel_pruning_tpu_torch.sampling.sampler import _dtype_of
 
 _STRUCT = (LT.ELTWISE, LT.CONCAT, LT.SELECT)
@@ -120,46 +122,120 @@ class _Groups:
     own plan (`plan`) goes to the device once, at construction, so no
     gather waits on a host-to-device copy; any other plan is uploaded per
     call. `compute_dtype` is the dtype of the convs ahead of the frontier;
-    their routes on a card are settled here, at the groups' shape."""
+    their routes on a card are settled here, at the groups' shape.
+
+    A group is a list of per-shard tensors. Without a mesh it holds one
+    tensor, the group's images. Under a `mesh` of more than one shard the
+    group's image axis is zero-padded to a multiple of the shard count and
+    split evenly: shard s holds images [s*per, (s+1)*per) on its device
+    and advances them there; its gathers take each image's own points, and
+    the rows come back on the lead device in the one-device order (the
+    padding's dropped)."""
 
     def __init__(self, graph: Graph, inputs, group_batches: int, device,
-                 plan=None, compute_dtype=None):
+                 plan=None, compute_dtype=None, mesh=None):
         n_batches = inputs.shape[0]
         step = min(group_batches, n_batches)
         while n_batches % step:
             step -= 1                    # uniform groups, as the JAX package
         self.group_batches = step
         self.n_groups = n_batches // step
-        self.device = device
+        self.bs = int(inputs.shape[1])
+        self.mesh = mesh if mesh_mod.is_sharded(mesh) else \
+            mesh_mod.Mesh((torch.device(device),))
+        self.device = self.mesh.lead
+        n_img = step * self.bs
+        self.bounds = mesh_mod.shard_bounds(n_img, self.mesh)
+        self.per = -(-n_img // self.mesh.size)       # images a shard
         self.plan = plan
-        self._plan_dev = _upload_plan(plan, device) if plan is not None else {}
+        self._plan_dev = {d: _upload_plan(plan, d) if plan is not None else {}
+                          for d in self.mesh.distinct}
+        # each shard image's batch within its group (padding: the last)
+        self._bidx = [torch.as_tensor(
+            np.minimum(np.arange(lo, lo + self.per) // self.bs, step - 1),
+            device=d) for (lo, _), d in zip(self.bounds, self.mesh.devices)]
         self.compute_dtype = _dtype_of(compute_dtype)
-        settle_conv_routes(graph, step * int(inputs.shape[1]),
-                           self.compute_dtype, device)
+        for d in self.mesh.distinct:
+            settle_conv_routes(graph, self.per, self.compute_dtype, d)
 
-    def upload(self, inputs) -> list[torch.Tensor]:
-        step = self.group_batches
-        return [device_chunk(inputs, lo, lo + step, self.device)
-                for lo in range(0, self.n_groups * step, step)]
+    @property
+    def sharded(self) -> bool:
+        return self.mesh.size > 1
+
+    def upload(self, inputs) -> list[list[torch.Tensor]]:
+        groups = []
+        for gi in range(self.n_groups):
+            base = gi * self.group_batches * self.bs
+            parts = []
+            for (lo, hi), d in zip(self.bounds, self.mesh.devices):
+                x = device_images(inputs, base + lo, base + hi, d) if hi > lo \
+                    else None
+                if hi - lo < self.per:
+                    pad = torch.zeros((self.per - (hi - lo),)
+                                      + tuple(inputs.shape[2:]), device=d)
+                    x = pad if x is None else torch.cat([x, pad])
+                parts.append(x)
+            groups.append(parts)
+        return groups
+
+    def params_by_device(self, params, layers) -> dict:
+        """{device: params}: under a mesh the segment's layers copied once
+        to each other distinct device (the running weights change every
+        layer)."""
+        if not self.sharded:
+            return {self.device: params}
+        seg = {l.name: params[l.name] for l in layers if l.name in params}
+        return mesh_mod.replicate(seg, self.mesh)
+
+    def _plan_on(self, plan, tensor: str, device):
+        if plan is self.plan and tensor in self._plan_dev[device]:
+            return self._plan_dev[device][tensor]
+        ys, xs = plan[tensor]
+        return (torch.as_tensor(ys, dtype=torch.long, device=device),
+                torch.as_tensor(xs, dtype=torch.long, device=device))
 
     def points(self, plan, tensor: str, gi: int):
+        """(G, P) points of group gi on the device (one shard)."""
+        ys, xs = self._plan_on(plan, tensor, self.device)
         lo, hi = gi * self.group_batches, (gi + 1) * self.group_batches
-        if plan is self.plan and tensor in self._plan_dev:
-            ys, xs = self._plan_dev[tensor]
-            return ys[lo:hi], xs[lo:hi]
-        ys, xs = plan[tensor]
-        return (torch.as_tensor(ys[lo:hi], dtype=torch.long, device=self.device),
-                torch.as_tensor(xs[lo:hi], dtype=torch.long, device=self.device))
+        return ys[lo:hi], xs[lo:hi]
+
+    def image_points(self, plan, tensor: str, gi: int, s: int):
+        """(per, P) points of each image of shard s of group gi."""
+        d = self.mesh.devices[s]
+        ys, xs = self._plan_on(plan, tensor, d)
+        idx = self._bidx[s] + gi * self.group_batches
+        return ys[idx], xs[idx]
+
+    def _image_rows(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        t = mesh_mod.gather_rows(parts, self.mesh,
+                                 self.group_batches * self.bs)
+        return image_rows(t, self.bs)
 
     def patches(self, groups, plan, l) -> torch.Tensor:
         """(N, c, kh, kw) input patches of conv layer `l` from its bottom's
-        per-group tensors; stays on the device."""
+        per-group tensors; stays on the (lead) device."""
         geo = l.conv_geometry()
         kern = ((geo["kh"], geo["kw"]), (geo["sh"], geo["sw"]),
                 (geo["ph"], geo["pw"]))
-        return torch.cat([gather_patches_grouped(
-            g, *self.points(plan, l.tops[0], gi), *kern)
-            for gi, g in enumerate(groups)], dim=0)
+        top = l.tops[0]
+        if not self.sharded:
+            return torch.cat([gather_patches_grouped(
+                g[0], *self.points(plan, top, gi), *kern)
+                for gi, g in enumerate(groups)], dim=0)
+        return torch.cat([self._image_rows([gather_patches_per_image(
+            v, *self.image_points(plan, top, gi, s), *kern)
+            for s, v in enumerate(g)]) for gi, g in enumerate(groups)], dim=0)
+
+    def channels(self, parts: list[torch.Tensor], plan, tensor: str,
+                 gi: int) -> torch.Tensor:
+        """Sampled (rows, C) of `tensor` from group gi's per-shard values."""
+        if not self.sharded:
+            return gather_channels_grouped(parts[0],
+                                           *self.points(plan, tensor, gi))
+        return self._image_rows([gather_channels_per_image(
+            v, *self.image_points(plan, tensor, gi, s))
+            for s, v in enumerate(parts)])
 
 
 def _rows(outs: list[torch.Tensor], device: bool):
@@ -169,15 +245,22 @@ def _rows(outs: list[torch.Tensor], device: bool):
 
 class RollingReplay:
     """Device-resident activation frontier of a chain graph over the
-    calibration set, stored as per-group chunks of `group_batches` batches."""
+    calibration set, stored as per-group chunks of `group_batches` batches
+    (each split by images over a `mesh`'s shards, see `_Groups`)."""
 
     def __init__(self, graph: Graph, inputs, *, device, group_batches: int = 10,
-                 plan=None, compute_dtype=None):
+                 plan=None, compute_dtype=None, mesh=None):
         self.graph = graph
         self._g = _Groups(graph, inputs, group_batches, device, plan,
-                          compute_dtype)
-        self.groups: list[torch.Tensor] = self._g.upload(inputs)
+                          compute_dtype, mesh)
+        self._parts: list[list[torch.Tensor]] = self._g.upload(inputs)
         self.tensor = graph.inputs[0].name
+
+    @property
+    def groups(self) -> list:
+        """The frontier's groups: a tensor each, or under a mesh each
+        group's per-shard tensors."""
+        return self._parts if self._g.sharded else [g[0] for g in self._parts]
 
     def _ahead(self):
         """The layers after the frontier's producer."""
@@ -197,12 +280,15 @@ class RollingReplay:
                             self.graph.index(cur.name)):
             raise FrontierError(f"cannot rewind frontier to {tensor}")
         layers = self._ahead()
-        for i, g in enumerate(self.groups):
-            env = {self.tensor: g}
-            _forward(layers, env, params, until=tensor,
-                     compute_dtype=self._g.compute_dtype)
-            self.groups[i] = env[tensor]
-            del env, g                      # free the old group before the next
+        by_dev = self._g.params_by_device(params, layers)
+        for g in self._parts:
+            for s, d in enumerate(self._g.mesh.devices):
+                env = {self.tensor: g[s]}
+                g[s] = None                 # free the old part before the next
+                _forward(layers, env, by_dev[d], until=tensor,
+                         compute_dtype=self._g.compute_dtype)
+                g[s] = env[tensor]
+                del env
         self.tensor = tensor
 
     def patches_at(self, plan, conv: str) -> torch.Tensor:
@@ -211,7 +297,7 @@ class RollingReplay:
         l = self.graph.layer(conv)
         if l.bottoms[0] != self.tensor:
             raise FrontierError(f"frontier at {self.tensor}, need {l.bottoms[0]}")
-        return self._g.patches(self.groups, plan, l)
+        return self._g.patches(self._parts, plan, l)
 
     @torch.no_grad()
     def features_at(self, params, plan, tensor: str, device: bool = False):
@@ -219,34 +305,46 @@ class RollingReplay:
         frontier (which stays where it is). `device=True` keeps them on the
         device as a tensor; otherwise a host array."""
         layers = self._ahead()
+        by_dev = self._g.params_by_device(params, layers)
         outs = []
-        for gi, g in enumerate(self.groups):
-            env = {self.tensor: g}
-            _forward(layers, env, params, until=tensor,
-                     compute_dtype=self._g.compute_dtype)
-            if tensor not in env:
-                raise FrontierError(f"{tensor} is not ahead of the frontier "
-                                    f"at {self.tensor}")
-            outs.append(gather_channels_grouped(
-                env[tensor], *self._g.points(plan, tensor, gi)))
-            del env
+        for gi, g in enumerate(self._parts):
+            parts = []
+            for s, d in enumerate(self._g.mesh.devices):
+                env = {self.tensor: g[s]}
+                _forward(layers, env, by_dev[d], until=tensor,
+                         compute_dtype=self._g.compute_dtype)
+                if tensor not in env:
+                    raise FrontierError(f"{tensor} is not ahead of the "
+                                        f"frontier at {self.tensor}")
+                parts.append(env[tensor])
+                del env
+            outs.append(self._g.channels(parts, plan, tensor, gi))
         return _rows(outs, device)
 
 
 class RollingReplayDAG:
     """Rolling frontier for residual graphs. The state is the CUT of
     tensors still needed by later layers, {tensor: [per-group tensors]};
-    same O(L) conv work and the same API as `RollingReplay`."""
+    same O(L) conv work and the same API as `RollingReplay`, and the same
+    split of each group over a `mesh`."""
 
     def __init__(self, graph: Graph, inputs, *, device, group_batches: int = 10,
-                 plan=None, compute_dtype=None):
+                 plan=None, compute_dtype=None, mesh=None):
         self.graph = graph
         self._g = _Groups(graph, inputs, group_batches, device, plan,
-                          compute_dtype)
-        self.state: dict[str, list[torch.Tensor]] = {
+                          compute_dtype, mesh)
+        self._cut: dict[str, list[list[torch.Tensor]]] = {
             graph.inputs[0].name: self._g.upload(inputs)}
         self.pos = -1                      # index of the last executed layer
         self.last = _last_use(graph)
+
+    @property
+    def state(self) -> dict:
+        """The live cut {tensor: groups}: a tensor a group, or under a mesh
+        each group's per-shard tensors."""
+        if self._g.sharded:
+            return self._cut
+        return {t: [g[0] for g in v] for t, v in self._cut.items()}
 
     def _segment_to(self, tensor: str):
         """(layers after the cut up to `tensor`'s producer, its index)."""
@@ -255,56 +353,62 @@ class RollingReplayDAG:
         if idx <= self.pos:
             raise FrontierError(f"{tensor} is behind the cut (its producer "
                                 f"ran before layer {self.pos + 1}) and not "
-                                f"in it {sorted(self.state)}")
+                                f"in it {sorted(self._cut)}")
         return self.graph.layers[self.pos + 1:idx + 1], idx
 
     @torch.no_grad()
     def advance_to(self, params, tensor: str) -> None:
         """Execute layers forward until `tensor` is produced; keep the live
         cut. Each old group is freed as its replacement is computed."""
-        if tensor in self.state:
+        if tensor in self._cut:
             return
         layers, idx = self._segment_to(tensor)
         keep_tops = set(self.graph.layers[idx].tops)
-        new_state: dict[str, list[torch.Tensor]] = {}
+        by_dev = self._g.params_by_device(params, layers)
+        new_state: dict[str, list[list[torch.Tensor]]] = {}
         for gi in range(self._g.n_groups):
-            env = {t: v[gi] for t, v in self.state.items()}
-            for v in self.state.values():
-                v[gi] = None
-            _forward(layers, env, params,
-                     compute_dtype=self._g.compute_dtype)
-            for t, a in env.items():
-                if self.last.get(t, -1) > idx or t in keep_tops:
-                    new_state.setdefault(t, []).append(a)
-            del env
-        self.state = new_state
+            for s, d in enumerate(self._g.mesh.devices):
+                env = {t: v[gi][s] for t, v in self._cut.items()}
+                for v in self._cut.values():
+                    v[gi][s] = None
+                _forward(layers, env, by_dev[d],
+                         compute_dtype=self._g.compute_dtype)
+                for t, a in env.items():
+                    if self.last.get(t, -1) > idx or t in keep_tops:
+                        new_state.setdefault(t, [[] for _ in range(
+                            self._g.n_groups)])[gi].append(a)
+                del env
+        self._cut = new_state
         self.pos = idx
 
     def patches_at(self, plan, conv: str) -> torch.Tensor:
         """(N, c, kh, kw) input patches of `conv` from the cut (its bottom
         must be live); stays on the device."""
         l = self.graph.layer(conv)
-        if l.bottoms[0] not in self.state:
+        if l.bottoms[0] not in self._cut:
             raise FrontierError(
-                f"{l.bottoms[0]} not in the live cut {sorted(self.state)}")
-        return self._g.patches(self.state[l.bottoms[0]], plan, l)
+                f"{l.bottoms[0]} not in the live cut {sorted(self._cut)}")
+        return self._g.patches(self._cut[l.bottoms[0]], plan, l)
 
     @torch.no_grad()
     def features_at(self, params, plan, tensor: str, device: bool = False):
         """Sampled responses (N, C) of `tensor`: straight from the cut when it
         is live, otherwise computed forward from the cut (state unchanged).
         `device=True` keeps them on the device as a tensor."""
-        layers = None if tensor in self.state else self._segment_to(tensor)[0]
+        layers = None if tensor in self._cut else self._segment_to(tensor)[0]
+        by_dev = None if layers is None else \
+            self._g.params_by_device(params, layers)
         outs = []
         for gi in range(self._g.n_groups):
             if layers is None:
-                v = self.state[tensor][gi]
+                parts = self._cut[tensor][gi]
             else:
-                env = {t: g[gi] for t, g in self.state.items()}
-                _forward(layers, env, params,
-                         compute_dtype=self._g.compute_dtype)
-                v = env.pop(tensor)
-                del env
-            outs.append(gather_channels_grouped(
-                v, *self._g.points(plan, tensor, gi)))
+                parts = []
+                for s, d in enumerate(self._g.mesh.devices):
+                    env = {t: g[gi][s] for t, g in self._cut.items()}
+                    _forward(layers, env, by_dev[d],
+                             compute_dtype=self._g.compute_dtype)
+                    parts.append(env.pop(tensor))
+                    del env
+            outs.append(self._g.channels(parts, plan, tensor, gi))
         return _rows(outs, device)

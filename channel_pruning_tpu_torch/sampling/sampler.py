@@ -25,11 +25,14 @@ import torch
 
 from channel_pruning_tpu_torch.graph.ir import Graph, LT, shapes_of
 from channel_pruning_tpu_torch.ops.forward import run_graph
-from channel_pruning_tpu_torch.ops.patches import (gather_channels_grouped,
-                                                   gather_patches_grouped)
+from channel_pruning_tpu_torch.ops.patches import (
+    gather_channels_grouped, gather_channels_per_image, gather_patches_grouped,
+    gather_patches_per_image, image_rows)
+from channel_pruning_tpu_torch.parallel import mesh as mesh_mod
 from channel_pruning_tpu_torch.sampling.inputs import (JAX_SPEC_KEY, SPEC_KEY,
                                                        SyntheticInputs,
-                                                       device_chunk)
+                                                       device_chunk,
+                                                       device_images)
 
 
 def make_point_plan(shapes: Mapping[str, tuple[int, ...]], tensors: Sequence[str],
@@ -79,20 +82,83 @@ def _plan_slice(plan, t: str, lo: int, hi: int, device):
             torch.as_tensor(xs[lo:hi], dtype=torch.long, device=device))
 
 
+def _shards(inputs, lo: int, hi: int, mesh):
+    """(device, first image, end image, that shard's images on its device)
+    of each non-empty shard of batches [lo, hi), images split evenly over
+    the mesh in order."""
+    bs = int(inputs.shape[1])
+    for (a, b), dev in zip(mesh_mod.shard_bounds((hi - lo) * bs, mesh),
+                           mesh.devices):
+        if b > a:
+            yield dev, a, b, device_images(inputs, lo * bs + a, lo * bs + b,
+                                           dev)
+
+
+def _image_points(plan, t: str, lo: int, a: int, b: int, bs: int, device):
+    """Each image's points, (b - a, P), for images [a, b) of the chunk that
+    starts at batch `lo`."""
+    ys, xs = plan[t]
+    bidx = lo + np.arange(a, b) // bs
+    return (torch.as_tensor(ys[bidx], dtype=torch.long, device=device),
+            torch.as_tensor(xs[bidx], dtype=torch.long, device=device))
+
+
+def _sharded_captures(sub, params, inputs, lo: int, hi: int, mesh,
+                      make_tf, compute_dtype=None) -> dict[str, torch.Tensor]:
+    """One chunk's captures under a mesh: each shard runs its own images on
+    its device, `make_tf(lo, a, b, device)` gives the capture transforms
+    for images [a, b) of the chunk, and each capture's pieces are gathered
+    on the lead device in image order."""
+    input_name = sub.inputs[0].name
+    parts: dict[str, list[torch.Tensor]] = {}
+    for dev, a, b, x in _shards(inputs, lo, hi, mesh):
+        _, caps = run_graph(sub, params[dev], {input_name: x},
+                            capture_transforms=make_tf(lo, a, b, dev),
+                            compute_dtype=_dtype_of(compute_dtype))
+        for t, v in caps.items():
+            parts.setdefault(t, []).append(v)
+    return {t: mesh_mod.gather_rows(v, mesh) for t, v in parts.items()}
+
+
 def sample_features(graph: Graph, params, inputs,
                     plan: Mapping[str, tuple[np.ndarray, np.ndarray]],
                     tensors: Sequence[str], *, device,
                     chunk_batches: int = 25,
-                    compute_dtype: str | None = None) -> dict[str, np.ndarray]:
+                    compute_dtype: str | None = None,
+                    mesh=None) -> dict[str, np.ndarray]:
     """Ground-truth response sampling: {tensor: (n_batches*P*bs, C)} (dense
     (n_images, D) for non-spatial tensors). inputs: (n_batches, bs, C, H, W)
     host array or SyntheticInputs; params on `device`. `compute_dtype`
     ("bfloat16") runs the convs on rounded operands with f32 sums, for
-    replays only: the freeze's ground truth stays f32."""
+    replays only: the freeze's ground truth stays f32. Under a `mesh` of
+    more than one shard (`device` its lead) each chunk's images are split
+    over the shards, each uploads and runs only its own, and the rows come
+    back in the one-device order."""
     tensors = tuple(tensors)
     input_name = graph.inputs[0].name
     sub = graph.ancestors_subgraph(tensors)     # skip layers past the captures
     outs: dict[str, list[torch.Tensor]] = {t: [] for t in tensors}
+    if mesh_mod.is_sharded(mesh):
+        bs = int(inputs.shape[1])
+        by_dev = mesh_mod.replicate(params, mesh)
+
+        def make_tf(lo, a, b, dev):
+            def tf_for(t):
+                def tf(v):
+                    if v.dim() != 4 or plan[t][0].shape[1] == 0:
+                        return v.reshape(v.shape[0], -1)
+                    return gather_channels_per_image(
+                        v, *_image_points(plan, t, lo, a, b, bs, dev))
+                return tf
+            return {t: tf_for(t) for t in tensors}
+
+        for lo, hi in _chunk_iter(inputs.shape[0], chunk_batches):
+            caps = _sharded_captures(sub, by_dev, inputs, lo, hi, mesh,
+                                     make_tf, compute_dtype)
+            for t in tensors:
+                v = caps[t]
+                outs[t].append(image_rows(v, bs) if v.dim() > 2 else v)
+        return {t: torch.cat(v, dim=0).cpu().numpy() for t, v in outs.items()}
     for lo, hi in _chunk_iter(inputs.shape[0], chunk_batches):
         x = device_chunk(inputs, lo, hi, device)
         pts = {t: _plan_slice(plan, t, lo, hi, device) for t in tensors}
@@ -116,10 +182,11 @@ def sample_features(graph: Graph, params, inputs,
 def sample_patches(graph: Graph, params, inputs, conv: str,
                    plan: Mapping[str, tuple[np.ndarray, np.ndarray]], *,
                    device, chunk_batches: int = 25,
-                   compute_dtype: str | None = None) -> torch.Tensor:
+                   compute_dtype: str | None = None, mesh=None) -> torch.Tensor:
     """Replay the current graph and gather the (N, c, kh, kw) input patches
     of `conv` at its planned output points; stays on `device`. The convs
-    run in `compute_dtype` as in `sample_features`."""
+    run in `compute_dtype` as in `sample_features`; under a `mesh` each
+    chunk is split by images as there, and the rows land on its lead."""
     l = graph.layer(conv)
     geo = l.conv_geometry()
     bottom, top = l.bottoms[0], l.tops[0]
@@ -127,6 +194,19 @@ def sample_patches(graph: Graph, params, inputs, conv: str,
     input_name = graph.inputs[0].name
     sub = graph.ancestors_subgraph((bottom,))   # replay only up to `bottom`
     outs = []
+    if mesh_mod.is_sharded(mesh):
+        bs = int(inputs.shape[1])
+        by_dev = mesh_mod.replicate(params, mesh)
+
+        def make_tf(lo, a, b, dev):
+            pts = _image_points(plan, top, lo, a, b, bs, dev)
+            return {bottom: lambda v: gather_patches_per_image(v, *pts, *kern)}
+
+        for lo, hi in _chunk_iter(inputs.shape[0], chunk_batches):
+            outs.append(image_rows(_sharded_captures(
+                sub, by_dev, inputs, lo, hi, mesh, make_tf,
+                compute_dtype)[bottom], bs))
+        return torch.cat(outs, dim=0)
     for lo, hi in _chunk_iter(inputs.shape[0], chunk_batches):
         x = device_chunk(inputs, lo, hi, device)
         ys, xs = _plan_slice(plan, top, lo, hi, device)
@@ -139,14 +219,24 @@ def sample_patches(graph: Graph, params, inputs, conv: str,
 
 
 def sample_dense(graph: Graph, params, inputs, tensors: Sequence[str], *,
-                 device, chunk_batches: int = 25) -> dict[str, torch.Tensor]:
+                 device, chunk_batches: int = 25,
+                 mesh=None) -> dict[str, torch.Tensor]:
     """Capture whole tensors, one row per image: {t: (n_images, ...)},
     left on `device` (the inputs of an FC consumer under fitfc). Chunked
-    as `sample_features` is."""
+    as `sample_features` is, and split by images under a `mesh`."""
     tensors = tuple(tensors)
     input_name = graph.inputs[0].name
     sub = graph.ancestors_subgraph(tensors)
     outs: dict[str, list[torch.Tensor]] = {t: [] for t in tensors}
+    if mesh_mod.is_sharded(mesh):
+        by_dev = mesh_mod.replicate(params, mesh)
+        for lo, hi in _chunk_iter(inputs.shape[0], chunk_batches):
+            caps = _sharded_captures(
+                sub, by_dev, inputs, lo, hi, mesh,
+                lambda *_: {t: (lambda v: v) for t in tensors})
+            for t in tensors:
+                outs[t].append(caps[t])
+        return {t: torch.cat(v, dim=0) for t, v in outs.items()}
     for lo, hi in _chunk_iter(inputs.shape[0], chunk_batches):
         x = device_chunk(inputs, lo, hi, device)
         _, caps = run_graph(sub, params, {input_name: x}, capture=tensors)
@@ -263,10 +353,13 @@ def freeze(graph: Graph, params, inputs, *, device,
            seed: int = 0, chunk_batches: int = 25,
            share_key: Callable[[str], str] | None = None,
            labels: np.ndarray | None = None,
-           include_fc: bool = True) -> FrozenCache:
+           include_fc: bool = True, mesh=None) -> FrozenCache:
     """Sample ground-truth responses of every conv top (default) on the
     calibration batches. The graph should have its ReLUs split
-    (rewrite.split_relu) so conv outputs are addressable."""
+    (rewrite.split_relu) so conv outputs are addressable. Under a `mesh`
+    (`device` its lead, `params` there) the calibration images are split
+    over its shards (`sample_features`); one parameter copy is made per
+    distinct device."""
     chunk_batches = clamp_chunk_for_hbm(graph, int(inputs.shape[1]),
                                         chunk_batches)
     if tensors is None:
@@ -275,7 +368,8 @@ def freeze(graph: Graph, params, inputs, *, device,
     plan = make_point_plan(shapes, tensors, inputs.shape[0], n_points, seed,
                            share_key=share_key)
     feats = sample_features(graph, params, inputs, plan, tensors,
-                            device=device, chunk_batches=chunk_batches)
+                            device=device, chunk_batches=chunk_batches,
+                            mesh=mesh)
     if not isinstance(inputs, SyntheticInputs):
         inputs = np.asarray(inputs)
     return FrozenCache(inputs=inputs, plan=plan, feats=feats, labels=labels)

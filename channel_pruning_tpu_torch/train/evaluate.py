@@ -10,6 +10,7 @@ import torch
 from channel_pruning_tpu_torch.convert import params_on
 from channel_pruning_tpu_torch.graph.ir import Graph
 from channel_pruning_tpu_torch.ops.forward import logits_tensor_of, run_graph
+from channel_pruning_tpu_torch.parallel import mesh as mesh_mod
 from channel_pruning_tpu_torch.train.finetune import _top5_hits, head_loss
 
 
@@ -27,17 +28,29 @@ def build_eval_step(graph: Graph):
 
 
 def evaluate(graph: Graph, params: Mapping, batches: Iterable, *, device,
-             max_batches: int | None = None, verbose: bool = False) -> dict:
+             max_batches: int | None = None, verbose: bool = False,
+             mesh=None) -> dict:
     """Accumulate top-1/top-5 over (x, y) numpy batches: {"accuracy@1",
-    "accuracy@5", "n_images"}."""
+    "accuracy@5", "n_images"}. A `mesh` splits each batch over its shards
+    (`device` is then its lead); the shards' counts are summed there."""
     step = build_eval_step(graph)
+    sharded = mesh_mod.is_sharded(mesh)
+    if sharded:
+        device = mesh.lead
     dev = params_on(params, device)
+    by_dev = mesh_mod.replicate(dev, mesh) if sharded else None
     n, counts = 0, []
     for i, (x, y) in enumerate(batches):
         if max_batches is not None and i >= max_batches:
             break
-        counts.append(torch.stack(step(dev, torch.as_tensor(x).to(device),
-                                       torch.as_tensor(y).to(device))))
+        x, y = torch.as_tensor(x), torch.as_tensor(y)
+        if sharded:
+            counts.append(mesh_mod.reduce_sum(
+                [torch.stack(step(by_dev[d], x[lo:hi].to(d), y[lo:hi].to(d)))
+                 for (lo, hi), d in zip(mesh_mod.shard_bounds(len(x), mesh),
+                                        mesh.devices) if hi > lo], mesh))
+        else:
+            counts.append(torch.stack(step(dev, x.to(device), y.to(device))))
         n += x.shape[0]
         if verbose and (i + 1) % 50 == 0:
             t1, t5 = torch.stack(counts).sum(0).tolist()
@@ -84,10 +97,10 @@ def evaluate_heads(graph: Graph, params: Mapping, teacher, heads,
 
 
 def evaluate_cache(graph: Graph, params, cache, *, device,
-                   max_batches=None) -> dict:
+                   max_batches=None, mesh=None) -> dict:
     """Accuracy over the frozen calibration batches (the reference's
     accuracy replay over memory-preloaded batches); needs the cache's
-    labels."""
+    labels. `mesh` as in `evaluate`."""
     if cache.labels is None:
         raise ValueError("frozen cache has no labels (synthetic calibration)")
     n = cache.n_batches if max_batches is None else min(max_batches,
@@ -96,4 +109,4 @@ def evaluate_cache(graph: Graph, params, cache, *, device,
 
     batches = ((device_chunk(cache.inputs, i, i + 1, "cpu"), cache.labels[i])
                for i in range(n))
-    return evaluate(graph, params, batches, device=device)
+    return evaluate(graph, params, batches, device=device, mesh=mesh)

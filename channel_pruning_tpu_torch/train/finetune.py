@@ -15,6 +15,13 @@ lr = base_lr * gamma^floor(count / stepsize) and count from 0.
   for the clip's norm but are not in the optimizer.
 - Dropout masks come from a torch.Generator (seed `seed`), so they differ
   from the JAX package's; with no generator dropout is the identity.
+- With a `mesh` (parallel/mesh) the batch is split by images over its
+  shards: each runs forward and backward on its device, the gradients,
+  weighted by shard size, are summed on the lead device in shard order,
+  the clip and the SGD step run there, and the parameters are copied back
+  to each other distinct device. One dropout seed a step serves every
+  shard, each slicing the whole batch's mask, so the mesh step is the
+  one-device step (as GSPMD's global mask is in JAX).
 """
 from __future__ import annotations
 
@@ -28,7 +35,9 @@ import torch.nn.functional as F
 
 from channel_pruning_tpu_torch.convert import GraphParams, params_on
 from channel_pruning_tpu_torch.graph.ir import Graph, LT
-from channel_pruning_tpu_torch.ops.forward import logits_tensor_of, run_graph
+from channel_pruning_tpu_torch.ops.forward import (draw_step_seed,
+                                                  logits_tensor_of, run_graph)
+from channel_pruning_tpu_torch.parallel import mesh as mesh_mod
 from channel_pruning_tpu_torch.utils.config import FinetuneConfig
 
 
@@ -42,6 +51,8 @@ class TrainState:
     # the end of each step: a CUDA event recorded on the stream, or the
     # host clock on the CPU (see step_ms)
     marks: list = field(default_factory=list)
+    # under a mesh: the parameters' copy on each distinct device but the lead
+    replicas: dict = field(default_factory=dict)
 
     @property
     def params(self) -> dict[str, dict[str, torch.Tensor]]:
@@ -161,21 +172,24 @@ def _clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> None:
 
 
 def build_train_step(graph: Graph, cfg: FinetuneConfig,
-                     heads: tuple[HeadSpec, ...] | None = None) -> Callable:
+                     heads: tuple[HeadSpec, ...] | None = None,
+                     mesh=None) -> Callable:
     """step(state, x, y, generator=None) -> (state, metrics). x: (B, C, H,
     W) f32 on the model's device; y: (B,) labels, or with `heads` a tuple
     of per-head targets and the loss is their weighted sum (metrics: top1
     is the first head's agreement, top5 the mean over heads). Metrics stay
-    device tensors."""
+    device tensors. Under a `mesh` (the state from `init_state(...,
+    mesh=)`) x and y may lie anywhere: each shard moves its own rows."""
     input_name = graph.inputs[0].name
 
     if heads is None:
         logits_t = logits_tensor_of(graph)
 
-        def loss_fn(params, x, y, generator):
+        def loss_fn(params, x, y, generator, seed=None, rows=None):
             _, caps = run_graph(graph, params, {input_name: x},
                                 capture=(logits_t,), train=True,
-                                generator=generator)
+                                generator=generator, step_seed=seed,
+                                dropout_rows=rows)
             logits = caps[logits_t]
             loss = F.cross_entropy(logits, y.long())
             acc1 = (logits.argmax(-1) == y).float().mean()
@@ -183,9 +197,10 @@ def build_train_step(graph: Graph, cfg: FinetuneConfig,
     else:
         tensors = tuple(h.tensor for h in heads)
 
-        def loss_fn(params, x, y, generator):
+        def loss_fn(params, x, y, generator, seed=None, rows=None):
             _, caps = run_graph(graph, params, {input_name: x},
-                                capture=tensors, train=True, generator=generator)
+                                capture=tensors, train=True, generator=generator,
+                                step_seed=seed, dropout_rows=rows)
             total, agrees = 0.0, []
             for spec, target in zip(heads, y):
                 l, agree = head_loss(spec, caps[spec.tensor], target)
@@ -193,11 +208,8 @@ def build_train_step(graph: Graph, cfg: FinetuneConfig,
                 agrees.append(agree)
             return total, (agrees[0], sum(agrees) / len(agrees))
 
-    def step(state: TrainState, x, y, generator=None) -> tuple[TrainState, dict]:
+    def update(state: TrainState) -> None:
         model = state.model
-        model.zero_grad(set_to_none=True)
-        loss, (acc1, acc5) = loss_fn(model.as_dict(), x, y, generator)
-        loss.backward()
         if cfg.clip_gradients:
             _clip_by_global_norm([p.grad for p in model.parameters()
                                   if p.grad is not None], cfg.clip_gradients)
@@ -205,16 +217,66 @@ def build_train_step(graph: Graph, cfg: FinetuneConfig,
             group["lr"] = lr_at(cfg, state.step)
         state.optimizer.step()
         state.step += 1
+
+    def step(state: TrainState, x, y, generator=None) -> tuple[TrainState, dict]:
+        model = state.model
+        model.zero_grad(set_to_none=True)
+        loss, (acc1, acc5) = loss_fn(model.as_dict(), x, y, generator)
+        loss.backward()
+        update(state)
         return state, {"loss": loss.detach(), "top1": acc1.detach(),
                        "top5": acc5.detach()}
 
-    return step
+    def mesh_step(state: TrainState, x, y, generator=None
+                  ) -> tuple[TrainState, dict]:
+        lead = state.model
+        lead.zero_grad(set_to_none=True)
+        params = list(lead.parameters())
+        B = int(x.shape[0])
+        seed = draw_step_seed(generator) if generator is not None else None
+        grads = [None] * len(params)
+        metrics = []
+        for (lo, hi), dev in zip(mesh_mod.shard_bounds(B, mesh), mesh.devices):
+            if hi == lo:
+                continue
+            model = state.replicas.get(dev, lead)
+            ys = tuple(t[lo:hi].to(dev) for t in y) if heads is not None \
+                else y[lo:hi].to(dev)
+            loss, (acc1, acc5) = loss_fn(model.as_dict(), x[lo:hi].to(dev), ys,
+                                         None, seed, (lo, hi, B))
+            w = (hi - lo) / B
+            part = torch.autograd.grad(loss * w, list(model.parameters()),
+                                       allow_unused=True)
+            for i, g in enumerate(part):      # summed in shard order
+                if g is not None:
+                    g = g.to(mesh.lead)
+                    grads[i] = g if grads[i] is None else grads[i] + g
+            metrics.append(torch.stack([loss.detach(), acc1.detach(),
+                                        acc5.detach()]).to(mesh.lead) * w)
+        for p, g in zip(params, grads):
+            p.grad = g
+        update(state)
+        with torch.no_grad():
+            for replica in state.replicas.values():
+                for r, p in zip(replica.parameters(), params):
+                    r.copy_(p)
+        m = mesh_mod.reduce_sum(metrics, mesh)
+        return state, {"loss": m[0], "top1": m[1], "top5": m[2]}
+
+    return mesh_step if mesh_mod.is_sharded(mesh) else step
 
 
 def init_state(graph: Graph, params: Mapping, cfg: FinetuneConfig, *,
-               device) -> TrainState:
+               device, mesh=None) -> TrainState:
+    """The model and its optimizer on `device` (under a mesh of more than
+    one shard, on its lead), and a replica on each other distinct device
+    of the mesh."""
+    if mesh_mod.is_sharded(mesh):
+        device = mesh.lead
     model = GraphParams(params, device)
-    return TrainState(model=model, step=0,
+    replicas = {} if not mesh_mod.is_sharded(mesh) else {
+        d: GraphParams(params, d) for d in mesh.distinct if d != mesh.lead}
+    return TrainState(model=model, step=0, replicas=replicas,
                       optimizer=make_optimizer(cfg, model, _frozen_layers(graph)))
 
 
@@ -223,14 +285,18 @@ def finetune(graph: Graph, params: Mapping, data_iter, cfg: FinetuneConfig, *,
              snapshot_dir: str | None = None, log_every: int = 100,
              seed: int = 0,
              heads: tuple[HeadSpec, ...] | None = None,
-             teacher: Callable | None = None) -> TrainState:
+             teacher: Callable | None = None, mesh=None) -> TrainState:
     """The `caffe train` loop over (x, y) numpy batches from `data_iter`.
     With `heads` and `teacher` (make_teacher_fn), each batch is trained
     against the frozen teacher's head outputs and its labels are ignored.
     The returned state's `history` holds every step's metrics as device
-    tensors; the loop reads them only every `log_every` steps."""
-    state = init_state(graph, params, cfg, device=device)
-    step_fn = build_train_step(graph, cfg, heads=heads)
+    tensors; the loop reads them only every `log_every` steps. A `mesh`
+    splits each batch over its shards (data parallel; `device` is then
+    its lead)."""
+    if mesh_mod.is_sharded(mesh):
+        device = mesh.lead
+    state = init_state(graph, params, cfg, device=device, mesh=mesh)
+    step_fn = build_train_step(graph, cfg, heads=heads, mesh=mesh)
     gen = torch.Generator().manual_seed(seed)
     n = max_steps if max_steps is not None else cfg.max_iter
     ckpt = None
@@ -240,8 +306,14 @@ def finetune(graph: Graph, params: Mapping, data_iter, cfg: FinetuneConfig, *,
     for i, (x, y) in enumerate(data_iter):
         if i >= n:
             break
-        xd = torch.as_tensor(x).to(device)
-        yd = teacher(xd) if teacher is not None else torch.as_tensor(y).to(device)
+        # under a mesh each shard moves its own rows from the host
+        xd = torch.as_tensor(x)
+        host = mesh_mod.is_sharded(mesh)
+        if teacher is not None:
+            yd = teacher(xd.to(device))
+        else:
+            yd = torch.as_tensor(y) if host else torch.as_tensor(y).to(device)
+        xd = xd if host else xd.to(device)
         state, metrics = step_fn(state, xd, yd, gen)
         state.history.append(metrics)
         state.marks.append(_mark(device))

@@ -94,6 +94,25 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
      how many layers select as the pipelined pass and the lowest per-layer
      IoU are printed (float32 against float64 grid endpoints may move a
      near-tie probe on random weights);
+  5e. the mesh (parallel/mesh, parallel/sharded), right after 5b: 4
+     logical shards on the card, and every card too when there are more:
+     the LASSO Gram and the least-squares fit at conv3_1's scale (N =
+     50,000 rows of 3x3 patches, c = 256, n = 512) sharded against local
+     at tests/test_parallel.py's tolerances, both timed; `cli prune` of
+     VGG-16 5x and of ResNet-50 2x with the solve on the mesh, on copies
+     of 5's and 5b's frozen caches: the pipelined pass to its end under
+     the sync check, the released 5x counts exactly, every ResNet-50 width
+     and gate in its band, K1 (and K2) launched, how many layers select as
+     the one-device run (a differing layer prints both runs' rMSEs) and
+     both walls; one finetune step of cp_vgg16 at batch 32 over the mesh
+     against the one-device step (dropout on, one generator): loss rtol
+     1e-5, weights rtol 1e-4 atol 1e-6;
+  5f. the native host codecs (csrc/caffemodel.cpp, csrc/preprocess.cpp,
+     built with g++ beside the nvcc builds): the He-init VGG-16 exported
+     (~553 MB) and read back by the native indexer and by the Python walk,
+     equal records, no counted fallback, both times; the C++/OpenMP
+     preprocess of 50 seeded 375x500 images against pipeline.preprocess,
+     both timed, within tests/test_native.py's bounds;
   6. training at full VGG-16 width, from the main path's cp_vgg16: one train
      step (dropout off) at batch 2 on the card and on the CPU from the same
      parameters and batch: in f64 the losses to 1e-10 and each blob's change
@@ -147,7 +166,7 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
      sequential path with one fixed-alpha LASSO a layer (K1 once a layer),
      every keep count above 0, the export reloads.
 The next-to-last line is a JSON record of the kernels (K1, K2, K3, with
-launches per path); the last line is
+launches per path, the mesh runs' among them); the last line is
 {"ok": true, "device": {...}}. Nothing of JAX or of the JAX package is
 imported here, nor by the port: it has its own copies of the numpy modules
 (graph IR, Caffe codec, models, config, FLOPs).
@@ -1979,6 +1998,287 @@ def phase_frcnn_f32_leg(device, bf16_res) -> dict:
             "masks_differ": differ, "rmse_gap": gap, **acc}
 
 
+def _mesh_prune(label: str, mesh, model: str, speed: str, cache_from: Path):
+    """`cli prune` of `model` with its solve on `mesh` (on one device when
+    None), on a copy of the one-device run's frozen cache: the CLI builds a
+    mesh only from more than one card, so its `_solver_mesh` is pointed at
+    this one. Returns (result, wall, launches)."""
+    from channel_pruning_tpu_torch import cli
+
+    def solver_mesh(device):
+        if mesh is not None:
+            print(f"[prune] sharding solver reductions over {mesh.size} "
+                  f"shards ({len(mesh.distinct)} devices)")
+        return mesh
+
+    orig = cli._solver_mesh
+    cli._solver_mesh = solver_mesh
+    _zero_launches()
+    t0 = time.perf_counter()
+    try:
+        res = _prune(model, speed, WORK / f"{label}", cache_from=cache_from)
+    finally:
+        cli._solver_mesh = orig
+    return res, time.perf_counter() - t0, _launches()
+
+
+def _agreement(label: str, res, solo) -> tuple[int, list[str]]:
+    """(layers whose masks equal the one-device run's, those that differ),
+    each differing layer printed with both runs' rMSEs."""
+    differ = [k for k in solo.selections
+              if not np.array_equal(res.selections[k], solo.selections[k])]
+    rm = {r.conv: r for r in res.reports}
+    for r in solo.reports:
+        if r.conv in differ:
+            m = rm[r.conv]
+            print(f"[{label}] {r.conv}: mask differs (keep {m.kept} vs "
+                  f"{r.kept}); rMSE {m.rmse_before:.5f} -> {m.rmse_after:.5f} "
+                  f"on the mesh, {r.rmse_before:.5f} -> {r.rmse_after:.5f} on "
+                  "one device", flush=True)
+    return len(solo.selections) - len(differ), differ
+
+
+def _sharded_reductions(tag: str, mesh, device) -> dict:
+    """The solver's reductions at conv3_1's scale (N = 50,000 rows of
+    3x3 patches of c = 256 channels, an n = 512 consumer): the LASSO Gram
+    of Z on the 400-row subsample and the least-squares fit on all rows,
+    sharded against local, at tests/test_parallel.py's tolerances."""
+    import torch
+
+    from channel_pruning_tpu_torch.ops import lasso, lstsq
+    from channel_pruning_tpu_torch.parallel import sharded
+
+    g = torch.Generator(device=device).manual_seed(0)
+    N, c, n, k = 50_000, 256, 512, 3
+    X = torch.relu(torch.randn((N, c, k, k), generator=g, device=device))
+    W2 = torch.randn((n, c, k, k), generator=g, device=device) * \
+        (2.0 / (k * k * c)) ** 0.5
+    Y = torch.einsum("nchw,ochw->no", X, W2) + 0.05 * torch.randn(
+        (N, n), generator=g, device=device)
+    Xs, Ys = lasso.row_subsample(X, Y, 400, 0)
+    Z = lasso.build_channel_response(Xs, W2)
+    y = Ys.reshape(-1)
+    ms_local, g_local = _time_ms(lambda: lasso.lasso_gram(Z, y), 5)
+    ms_shard, g_shard = _time_ms(
+        lambda: sharded.sharded_lasso_gram(Z, y, mesh), 5)
+    torch.testing.assert_close(g_shard.G, g_local.G, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(g_shard.b, g_local.b, rtol=1e-4, atol=1e-3)
+    X2 = X.reshape(N, -1)
+    ms_fit, (W_l, b_l) = _time_ms(lambda: lstsq.fit_linear(X2, Y), 2)
+    ms_sfit, (W_s, b_s) = _time_ms(lambda: sharded.sharded_lstsq(X2, Y, mesh), 2)
+    torch.testing.assert_close(W_s, W_l, rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(b_s, b_l, rtol=1e-3, atol=1e-3)
+    gap_g = float((g_shard.G - g_local.G).abs().max() / g_local.G.abs().max())
+    gap_w = float((W_s - W_l).abs().max() / W_l.abs().max())
+    print(f"[{tag}] Gram of Z {tuple(Z.shape)}: sharded {ms_shard:.3f} ms, "
+          f"local {ms_local:.3f} ms, max gap {gap_g:.1e} of max|G|; lstsq of "
+          f"X {tuple(X2.shape)} on Y {tuple(Y.shape)}: sharded {ms_sfit:.2f} "
+          f"ms, local {ms_fit:.2f} ms, max gap {gap_w:.1e} of max|W|; both "
+          "within tests/test_parallel.py's tolerances", flush=True)
+    return {"gram_ms": ms_shard, "gram_local_ms": ms_local, "gram_gap": gap_g,
+            "lstsq_ms": ms_sfit, "lstsq_local_ms": ms_fit, "lstsq_gap": gap_w}
+
+
+def _dp_step(tag: str, mesh, device) -> dict:
+    """One finetune step of cp_vgg16 (the main path's export) at batch 32
+    over the mesh against the one-device step on the same batch and
+    generator (dropout on): loss rtol 1e-5, weights rtol 1e-4 atol 1e-6
+    (tests/test_parallel.py:135-153)."""
+    import torch
+
+    from channel_pruning_tpu_torch.io.caffe import import_model
+    from channel_pruning_tpu_torch.sampling.inputs import SyntheticInputs
+    from channel_pruning_tpu_torch.train import finetune as ft
+    from channel_pruning_tpu_torch.utils.config import FinetuneConfig
+
+    g, p = import_model(WORK / "vgg16" / "cp_vgg16.prototxt",
+                        WORK / "vgg16" / "cp_vgg16.caffemodel")
+    cfg = FinetuneConfig()               # the reference's solver: lr 1e-5
+    x = SyntheticInputs(1, 32, (3, 224, 224), seed=5).batch(0)
+    y = torch.as_tensor(np.random.default_rng(5).integers(0, 1000, 32))
+    out = {}
+    for name, m in (("mesh", mesh), ("one", None)):
+        state = ft.init_state(g, p, cfg, device=device, mesh=m)
+        step = ft.build_train_step(g, cfg, mesh=m)
+        grads = []
+        # read the gradients before the update (SGD adds Nesterov's term
+        # into them in place)
+        state.optimizer.register_step_pre_hook(lambda *_: grads.append(
+            torch.cat([q.grad.reshape(-1) for q in state.model.parameters()
+                       if q.grad is not None])))
+        gen = torch.Generator(device=device).manual_seed(7)
+        xs, ys = (x, y) if m is not None else (x.to(device), y.to(device))
+        times = []
+        for _ in range(2):        # the second step timed warm; the first held
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, xs, ys, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if len(times) == 1:
+                loss = float(metrics["loss"])
+                weights = {n: b["W"].detach().clone()
+                           for n, b in state.params.items() if "W" in b}
+        out[name] = (loss, times[1], weights, grads[0])
+        del state
+    (l_m, t_m, w_m, g_m), (l_o, t_o, w_o, g_o) = out["mesh"], out["one"]
+    np.testing.assert_allclose(l_m, l_o, rtol=1e-5)
+    gaps = []
+    for n in w_o:
+        torch.testing.assert_close(w_m[n], w_o[n], rtol=1e-4, atol=1e-6)
+        gaps.append(float((w_m[n] - w_o[n]).abs().max()))
+    # the f32 card gradients of two orders of summation, as one vector: at
+    # most phase 6's bound for f32 card gradients against f64 (2e-2)
+    g_gap = float((g_m - g_o).norm() / g_o.norm())
+    if not g_gap <= 2e-2:
+        raise AssertionError(f"DP gradients {g_gap:.2e} from one device's")
+    print(f"[{tag}] DP finetune step of cp_vgg16 at batch 32 (lr 1e-5) over "
+          f"{mesh.size} shards against one device: loss {l_m:.6f} vs "
+          f"{l_o:.6f}; largest weight gap {max(gaps):.1e} over {len(gaps)} "
+          f"layers; gradients as one vector {g_gap:.2e} apart; warm step "
+          f"{t_m * 1e3:.1f} ms vs {t_o * 1e3:.1f} ms", flush=True)
+    return {"loss": l_m, "loss_one": l_o, "weight_gap": max(gaps),
+            "grad_gap": g_gap, "step_ms": t_m * 1e3, "step_one_ms": t_o * 1e3}
+
+
+def phase_mesh(device, vgg_res, r50_res) -> dict:
+    """The mesh (parallel/mesh, parallel/sharded) on the card: 4 logical
+    shards on it, and every card when there is more than one. Per mesh:
+    the sharded Gram and least squares at conv3_1's scale against local;
+    VGG-16 5x and ResNet-50 2x through `cli prune` with the solve on the
+    mesh (the pipelined pass taken, under the sync check) on copies of the
+    one-device runs' frozen caches: the released 5x counts exactly, every
+    ResNet-50 width and gate in its band, the masks against the one-device
+    runs (a differing layer prints both rMSEs), the walls beside a warm
+    one-device run on the same cache; and one DP finetune step against the
+    one-device step."""
+    import torch
+
+    from channel_pruning_tpu_torch.parallel.mesh import make_mesh
+
+    meshes = [("mesh4", make_mesh(4, device=device))]
+    if torch.cuda.device_count() > 1:
+        meshes.append((f"cards{torch.cuda.device_count()}", make_mesh()))
+    # one device on the same cache copies, warm: the walls to compare with
+    _, vgg_wall, _ = _mesh_prune("vgg16_one", None, "vgg16", "5.0",
+                                 WORK / "vgg16")
+    _, r50_wall, _ = _mesh_prune("resnet50_one", None, "resnet50", "2.0",
+                                 WORK / "resnet50")
+    out = {"one_device": {"vgg16_5x_wall": vgg_wall,
+                          "resnet50_2x_wall": r50_wall}}
+    for tag, mesh in meshes:
+        rec = {"reductions": _sharded_reductions(tag, mesh, device)}
+        res, wall, launches = _mesh_prune(f"vgg16_{tag}", mesh, "vgg16", "5.0",
+                                          WORK / "vgg16")
+        _check_pipelined(f"vgg16_{tag}", res)
+        _check_vgg_counts(WORK / f"vgg16_{tag}", res)
+        same, differ = _agreement(f"vgg16_{tag}", res, vgg_res)
+        print(f"[vgg16_{tag}] keep counts equal the released 5x table; "
+              f"{same}/{len(vgg_res.selections)} layers select as the "
+              f"one-device run on its frozen cache; wall {wall:.2f}s (solve "
+              f"{res.wall['solve']:.2f}s) against {vgg_wall:.2f}s on one "
+              f"device (the same cache loaded, warm); K1 {launches['k1']}",
+              flush=True)
+        rec["vgg16_5x"] = {"launches": launches, "wall": wall,
+                           "solve_s": res.wall["solve"], "same": same,
+                           "differ": differ}
+        res, wall, launches = _mesh_prune(f"resnet50_{tag}", mesh, "resnet50",
+                                          "2.0", WORK / "resnet50")
+        _check_pipelined(f"resnet50_{tag}", res)
+        failures, summary = _resnet50_structure(WORK / f"resnet50_{tag}", res)
+        if launches["k1"] <= 0 or launches["k2"] <= 0:
+            failures.append(f"K1 launches {launches['k1']}, K2 {launches['k2']}")
+        same, differ = _agreement(f"resnet50_{tag}", res, r50_res)
+        print(f"[resnet50_{tag}] {summary}; {same}/{len(r50_res.selections)} "
+              f"layers select as the one-device run on its frozen cache; "
+              f"wall {wall:.2f}s (solve {res.wall['solve']:.2f}s) against "
+              f"{r50_wall:.2f}s on one device (the same cache loaded, warm); "
+              f"K1 {launches['k1']} K2 {launches['k2']}", flush=True)
+        if failures:
+            raise AssertionError(f"ResNet-50 2x on {tag}: " + "; ".join(failures))
+        rec["resnet50_2x"] = {"launches": launches, "wall": wall,
+                              "solve_s": res.wall["solve"], "same": same,
+                              "differ": differ}
+        rec["dp_step"] = _dp_step(tag, mesh, device)
+        out[tag] = rec
+    return out
+
+
+def phase_native() -> dict:
+    """The native host codecs (built with g++ beside the nvcc builds): the
+    He-init VGG-16 exported once (~553 MB) and read back through the
+    native indexer and through the Python walk, records equal (names,
+    types, shapes, every blob's bytes), the native path taken (no counted
+    fallback), both times; and the C++/OpenMP preprocess of 50 seeded
+    375x500 images against the port's `pipeline.preprocess`, both timed,
+    within tests/test_native.py's bounds."""
+    from channel_pruning_tpu_torch.data import native_preprocess as npp
+    from channel_pruning_tpu_torch.data.pipeline import preprocess
+    from channel_pruning_tpu_torch.io import caffe as cio
+    from channel_pruning_tpu_torch.io import caffemodel as cm
+    from channel_pruning_tpu_torch.models.vgg import build_vgg16, init_params
+
+    work = WORK / "native"
+    work.mkdir(parents=True, exist_ok=True)
+    g = build_vgg16()
+    path = work / "vgg16.caffemodel"
+    t0 = time.perf_counter()
+    cio.export_model(g, init_params(g, seed=0), work / "vgg16.prototxt", path)
+    t_export = time.perf_counter() - t0
+    before = cm.native_fallbacks
+    t_native, t_python = [], []
+    for _ in range(2):                     # alternated, the faster of two
+        t0 = time.perf_counter()
+        name, native = cm.load_caffemodel(path)
+        t_native.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        name_py, walk = cm.load_caffemodel_python(path)
+        t_python.append(time.perf_counter() - t0)
+    t_native, t_python = min(t_native), min(t_python)
+    if cm.native_fallbacks != before:
+        raise AssertionError("the VGG-16 load fell back to the Python walk")
+    if name != name_py or len(native) != len(walk):
+        raise AssertionError(f"records differ: {name}/{len(native)} vs "
+                             f"{name_py}/{len(walk)}")
+    n_blobs = 0
+    for a, b in zip(native, walk):
+        if (a.name, a.type, len(a.blobs)) != (b.name, b.type, len(b.blobs)) \
+                or any(u.shape != v.shape or u.tobytes() != v.tobytes()
+                       for u, v in zip(a.blobs, b.blobs)):
+            raise AssertionError(f"layer {a.name}: native and Python records differ")
+        n_blobs += len(a.blobs)
+    size = path.stat().st_size
+    print(f"[native] VGG-16 caffemodel {size / 1e6:.1f} MB (export "
+          f"{t_export:.2f}s): native load {t_native:.3f}s, Python walk "
+          f"{t_python:.3f}s ({t_python / t_native:.1f}x); {len(native)} layers, "
+          f"{n_blobs} blobs equal in names, types, shapes and bytes; no "
+          "fallback", flush=True)
+    imgs = np.random.default_rng(0).integers(0, 256, (50, 375, 500, 3)).astype(np.uint8)
+    t_npp, t_pp = [], []
+    for _ in range(2):                     # alternated, the faster of two
+        t0 = time.perf_counter()
+        got = npp.preprocess_batch(imgs)
+        t_npp.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        want = np.stack([preprocess(im).numpy() for im in imgs])
+        t_pp.append(time.perf_counter() - t0)
+    t_npp, t_pp = min(t_npp), min(t_pp)
+    diff = np.abs(got[:, :, 4:-4, 4:-4] - want[:, :, 4:-4, 4:-4])
+    if not (diff.max() < 1.5 and diff.mean() < 0.1):
+        raise AssertionError(f"native preprocess off the pipeline's: max "
+                             f"{diff.max()}, mean {diff.mean()}")
+    print(f"[native] preprocess of 50 375x500 images: C++/OpenMP "
+          f"({npp.num_threads()} threads) {t_npp * 1e3:.1f} ms, the port's "
+          f"pipeline.preprocess {t_pp * 1e3:.1f} ms; interior max |gap| "
+          f"{diff.max():.4f}, mean {diff.mean():.5f}", flush=True)
+    path.unlink()
+    return {"caffemodel_mb": size / 1e6, "native_load_s": t_native,
+            "python_load_s": t_python, "export_s": t_export,
+            "preprocess_native_ms": t_npp * 1e3,
+            "preprocess_pipeline_ms": t_pp * 1e3, "preprocess_gap_max":
+            float(diff.max()), "threads": npp.num_threads()}
+
+
 def main() -> int:
     import argparse
 
@@ -1998,9 +2298,12 @@ def main() -> int:
         return 2
     from concurrent.futures import ThreadPoolExecutor
 
+    from channel_pruning_tpu_torch.data import native_preprocess
     from channel_pruning_tpu_torch.device import resolve_device
+    from channel_pruning_tpu_torch.io import native_caffemodel
     from channel_pruning_tpu_torch.kernels import group_cd, lasso_cd
     from channel_pruning_tpu_torch.pipeline import c3
+    from channel_pruning_tpu_torch.utils import native
 
     card = _card_line()
     print(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}",
@@ -2008,10 +2311,13 @@ def main() -> int:
     device = resolve_device("cuda")
 
     t = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:      # one nvcc a source, side by side
-        for f in [pool.submit(lasso_cd.build), pool.submit(group_cd.build)]:
+    with ThreadPoolExecutor(4) as pool:      # one compiler a source, side by side
+        for f in [pool.submit(lasso_cd.build), pool.submit(group_cd.build),
+                  pool.submit(native.build, native_caffemodel.SOURCE),
+                  pool.submit(native.build, native_preprocess.SOURCE)]:
             f.result()
-    print(f"[build] lasso_cd.cu (K1, K2) and group_cd.cu (K3) -> sm_90a in "
+    print(f"[build] lasso_cd.cu (K1, K2) and group_cd.cu (K3) -> sm_90a, "
+          f"caffemodel.cpp and preprocess.cpp -> g++ in "
           f"{time.perf_counter() - t:.2f}s", flush=True)
     for line in (lasso_cd.ptxas_report()
                  + lasso_cd.ptxas_report(group_cd.SOURCE)).splitlines():
@@ -2032,6 +2338,8 @@ def main() -> int:
     vgg, wall, vgg_res = phase_main_path(device)
     vgg_f32 = phase_vgg16_f32_leg(device, vgg_res, wall)
     r50, r50_wall, r50_res = phase_resnet50(device)
+    mesh = phase_mesh(device, vgg_res, r50_res)
+    native_rec = phase_native()
     v3c, v3c_wall, _ = phase_vgg16_3c(device)
     phase_sequential("main", _prune_vgg16, vgg_res, _check_vgg_counts)
     phase_sequential("resnet50", _prune_resnet50, r50_res, _check_resnet_bands)
@@ -2056,6 +2364,9 @@ def main() -> int:
 
     (WORK / "train_phases.json").write_text(json.dumps(
         {"card": card, "train": train, "accuracy": acc, "addbn_3c": addbn}, indent=1))
+    (WORK / "mesh_phases.json").write_text(json.dumps(
+        {"card": card, "mesh": mesh, "native": native_rec}, indent=1,
+        default=str))
     print(f"[train] phase numbers -> {WORK / 'train_phases.json'}")
     (WORK / "prune_phases.json").write_text(json.dumps(
         {"card": card, "xception_2x": xcp, "frcnn_600_5x": frcnn,
@@ -2070,6 +2381,11 @@ def main() -> int:
                "xception_2x": xcp["launches"], "frcnn_600_5x": frcnn["launches"],
                "vgg16_fitfc_4x": fitfc["launches"],
                "vgg16_autodet_5x": autodet["launches"]}
+    for tag, rec in mesh.items():
+        if tag == "one_device":
+            continue
+        by_path[f"vgg16_5x_{tag}"] = rec["vgg16_5x"]["launches"]
+        by_path[f"resnet50_2x_{tag}"] = rec["resnet50_2x"]["launches"]
 
     def launches(k):
         per = {name: n[k] for name, n in by_path.items()}

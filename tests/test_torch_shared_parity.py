@@ -4,6 +4,7 @@ against the originals: equal graphs, parameters, counts and config, Caffe
 files and checkpoints that each package reads back from the other, and the
 port's repair of Select gates whose index list holds only 0s and 1s."""
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -200,3 +201,29 @@ def test_solve_checkpoint_loads_across_packages(tmp_path, writer, reader):
     np.testing.assert_array_equal(got["selections"]["conv2"],
                                   state["selections"]["conv2"])
     assert got["reports"] == [1, 2]
+
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.mark.parametrize("name", ["caffemodel.cpp", "preprocess.cpp"])
+def test_native_sources_are_byte_copies(name):
+    """The port builds its own copies of the JAX package's C++ codecs: they
+    must stay byte-equal to native/."""
+    assert (REPO / "channel_pruning_tpu_torch" / "csrc" / name).read_bytes() \
+        == (REPO / "native" / name).read_bytes()
+
+
+@pytest.mark.parametrize("shape,multiple,axis", [
+    ((203, 24), 8, 0), ((16, 3), 8, 0), ((5, 7, 2), 4, 1), ((1,), 3, 0),
+    ((0, 4), 8, 0)])
+def test_pad_to_multiple_equals_jax(shape, multiple, axis):
+    from channel_pruning_tpu.parallel import mesh as jax_mesh
+    from channel_pruning_tpu_torch.parallel import mesh as mesh_mod
+
+    x = np.random.default_rng(len(shape) * multiple).normal(size=shape) \
+        .astype(np.float32)
+    got, n = mesh_mod.pad_to_multiple(x, multiple, axis)
+    want, n_j = jax_mesh.pad_to_multiple(x, multiple, axis)
+    assert n == n_j and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
