@@ -117,12 +117,19 @@ _PRELOAD_MAX_IMAGES = 20_000
 
 
 def _calibration(args, graph):
-    """(inputs (n_batches, bs, C, H, W), labels or None): shuffled batches
-    of `--data-dir` with their labels, or a synthetic set that exists only
-    as a seed."""
+    """(inputs (n_batches, bs, C, H, W), labels or None): the host array a
+    caller handed `main` (`cal_inputs`), shuffled batches of `--data-dir`
+    with their labels, or a synthetic set that exists only as a seed."""
     from channel_pruning_tpu_torch.sampling.inputs import SyntheticInputs
 
     shape = graph.inputs[0].shape
+    given = getattr(args, "cal_inputs", None)
+    if given is not None:
+        want = (args.cal_batches, args.cal_batch, *shape[1:])
+        if tuple(given.shape) != want:
+            raise ValueError(f"calibration array of shape {tuple(given.shape)}, "
+                             f"want {want}")
+        return np.asarray(given, np.float32), None
     if args.data_dir:
         from channel_pruning_tpu_torch.data.pipeline import calibration_batches
         src = _image_batches(args, graph, batch=args.cal_batch, shuffle=True,
@@ -659,7 +666,11 @@ def cmd_verify_release(args):
     return out
 
 
-def main(argv=None):
+def main(argv=None, *, cal_inputs=None):
+    """Run one subcommand. `cal_inputs`, a host array (cal_batches,
+    cal_batch, C, H, W), is the calibration set of `prune` in place of
+    `--data-dir` or the synthetic set (callers in Python only: a seeded
+    numpy set that another package can regenerate bit for bit)."""
     parser = argparse.ArgumentParser(prog="channel_pruning_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -785,6 +796,7 @@ def main(argv=None):
     p.add_argument("--compare-weights", default=None)
 
     args = parser.parse_args(argv)
+    args.cal_inputs = cal_inputs
     return args.fn(args)
 
 

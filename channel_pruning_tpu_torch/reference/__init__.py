@@ -1,0 +1,382 @@
+"""The JAX package's own answer at full size, and the check of the port
+against it.
+
+`tools/jax_reference.py` runs the JAX package's `cli prune` on the CPU on
+a seeded numpy calibration set (the same array on every machine, bit for
+bit) and the numpy He-init weights, and writes what it found under
+`data/<path>.json` (provenance, per pruned layer the kept count, the kept
+mask and the rMSE before and after, the conv mults) and `data/<path>.npz`
+(per frozen tensor, the mean and RMS of each channel over the frozen rows,
+in f64). This module regenerates those inputs (their sha256 checked
+against the artifact), digests the port's frozen cache the same way and
+holds the port's result to the artifact (`compare`).
+
+The bars of `compare` (a fault raises `ReferenceFault`):
+  * every kept count (and every 3C rank) equal;
+  * freeze fidelity: each channel's mean and RMS within 1e-4 of the
+    tensor's RMS of the JAX value (an f32 conv on the card against XLA's
+    on the CPU);
+  * per layer, at most max(2, 1% of its input channels) channels kept by
+    one package and not by the other (a swap of one kept channel for
+    another counts one);
+  * every rMSE after within 1e-2 of the JAX value, relative.
+Every gap is measured and printed, not only the faults.
+
+Imports torch and the port; nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+from dataclasses import dataclass, field
+from pathlib import Path
+
+import numpy as np
+
+DATA = Path(__file__).resolve().parent / "data"
+
+IMAGE_SEED = 1       # the images' numpy seed (the weights' is 0)
+WEIGHT_SEED = 0      # the CLI's init_params seed
+
+# the committed paths: the CLI's arguments of each, at its defaults
+PATHS = {
+    "vgg16_5x": {"model": "vgg16", "mode": "prune", "speed": 5.0,
+                 "image_size": 224},
+    "resnet50_2x": {"model": "resnet50", "mode": "prune", "speed": 2.0,
+                    "image_size": 224},
+    "vgg16_3c_4x": {"model": "vgg16", "mode": "3c", "speed": 4.0,
+                    "image_size": 224},
+    "xception_2x": {"model": "xception", "mode": "prune", "speed": 2.0,
+                    "image_size": 299},
+}
+CAL_BATCHES, CAL_BATCH = 50, 10      # the CLI's default calibration set
+
+FREEZE_BAR = 1e-4        # of the tensor's RMS, per channel mean and RMS
+MASK_BAR = (2, 0.01)     # max(2, 1% of the input channels)
+RMSE_BAR = 1e-2          # relative, rMSE after
+
+
+class ReferenceFault(AssertionError):
+    """The port's result is outside a bar of `compare`."""
+
+
+def spec_for(path: str, **over) -> dict:
+    """The full spec of a committed path (or `over` on its own for a path
+    that is not committed, e.g. a tiny model in a test): the CLI's
+    arguments and the calibration set's shape and seed."""
+    spec = {"model": "vgg16", "mode": "prune", "speed": 5.0,
+            "image_size": None, "batch": CAL_BATCH,
+            "cal_batches": CAL_BATCHES, "cal_batch": CAL_BATCH,
+            "image_seed": IMAGE_SEED, "weight_seed": WEIGHT_SEED, "set": []}
+    spec.update(PATHS.get(path, {}))
+    spec.update(over)
+    return spec
+
+
+def cli_args(spec: dict) -> list[str]:
+    """The `cli prune` arguments of a spec (both packages' CLIs)."""
+    argv = ["prune", "--model", spec["model"], "--mode", spec["mode"],
+            "--speed", str(spec["speed"]), "--batch", str(spec["batch"]),
+            "--cal-batches", str(spec["cal_batches"]),
+            "--cal-batch", str(spec["cal_batch"])]
+    if spec.get("image_size"):
+        argv += ["--image-size", str(spec["image_size"])]
+    for kv in spec.get("set", []):
+        argv += ["--set", kv]
+    return argv
+
+
+def images(shape, seed: int = IMAGE_SEED) -> np.ndarray:
+    """The calibration set: unit normals from numpy's default generator."""
+    return np.random.default_rng(seed).normal(size=tuple(shape)).astype(np.float32)
+
+
+def sha256_array(a) -> str:
+    a = np.ascontiguousarray(np.asarray(a))
+    h = hashlib.sha256(f"{a.dtype.str}{a.shape}".encode())
+    h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def weights_sha(params) -> str:
+    """sha256 over every array of the parameters, sorted by layer and blob
+    name."""
+    h = hashlib.sha256()
+    for layer in sorted(params):
+        for blob in sorted(params[layer]):
+            h.update(f"{layer}/{blob}".encode())
+            h.update(sha256_array(params[layer][blob]).encode())
+    return h.hexdigest()
+
+
+def plan_sha(plan) -> str:
+    """sha256 of a point plan {tensor: (ys, xs)}, sorted by tensor."""
+    h = hashlib.sha256()
+    for t in sorted(plan):
+        ys, xs = plan[t]
+        h.update(t.encode())
+        h.update(sha256_array(ys).encode())
+        h.update(sha256_array(xs).encode())
+    return h.hexdigest()
+
+
+def digest(feats) -> dict[str, tuple[np.ndarray, np.ndarray]]:
+    """{tensor: (mean, rms)} of each channel over the frozen rows, in f64."""
+    out = {}
+    for t, f in feats.items():
+        f = np.asarray(f, dtype=np.float64)
+        f = f.reshape(f.shape[0], -1)
+        out[t] = (f.mean(axis=0), np.sqrt((f * f).mean(axis=0)))
+    return out
+
+
+def freeze_digest(cache) -> dict[str, tuple[np.ndarray, np.ndarray]]:
+    """`digest` of a frozen cache's sampled rows."""
+    return digest(cache.feats)
+
+
+def pack_selections(selections) -> dict:
+    """{consumer: {"total": c, "kept": [indices]}} of boolean masks."""
+    out = {}
+    for k in sorted(selections):
+        m = np.asarray(selections[k]).astype(bool).ravel()
+        out[k] = {"total": int(m.size), "kept": np.flatnonzero(m).tolist()}
+    return out
+
+
+def unpack_mask(entry) -> np.ndarray:
+    m = np.zeros(entry["total"], bool)
+    m[entry["kept"]] = True
+    return m
+
+
+def report_rows(reports) -> list[dict]:
+    """Each solved layer's name, rank, kept / total and rMSEs, in solve
+    order (either package's LayerReport)."""
+    return [{"conv": r.conv, "rank": None if r.rank is None else int(r.rank),
+             "kept": None if r.kept is None else int(r.kept),
+             "total": None if r.total is None else int(r.total),
+             "rmse_before": float(r.rmse_before),
+             "rmse_after": float(r.rmse_after)} for r in reports]
+
+
+@dataclass
+class Artifact:
+    """A committed (or freshly written) JAX answer."""
+
+    meta: dict
+    digest: dict[str, tuple[np.ndarray, np.ndarray]]
+
+    @property
+    def spec(self) -> dict:
+        return self.meta["spec"]
+
+    @property
+    def layers(self) -> list[dict]:
+        return self.meta["layers"]
+
+    @property
+    def selections(self) -> dict:
+        return self.meta["selections"]
+
+
+def save(stem: Path, meta: dict, dig) -> None:
+    stem = Path(stem)
+    stem.parent.mkdir(parents=True, exist_ok=True)
+    stem.with_suffix(".json").write_text(json.dumps(meta, indent=1) + "\n")
+    payload = {}
+    for t, (mean, rms) in dig.items():
+        payload[f"mean::{t}"] = mean
+        payload[f"rms::{t}"] = rms
+    np.savez_compressed(stem.with_suffix(".npz"), **payload)
+
+
+def load(path) -> Artifact:
+    """A committed path by name (`vgg16_5x`) or an artifact's stem."""
+    stem = DATA / path if isinstance(path, str) and "/" not in path else Path(path)
+    stem = stem.with_suffix("")
+    meta = json.loads(stem.with_suffix(".json").read_text())
+    dig: dict = {}
+    with np.load(stem.with_suffix(".npz")) as z:
+        for k in z.files:
+            kind, t = k.split("::", 1)
+            dig.setdefault(t, [None, None])[kind == "rms"] = z[k]
+    return Artifact(meta, {t: (m, r) for t, (m, r) in dig.items()})
+
+
+def committed() -> list[str]:
+    """The paths with an artifact under data/."""
+    return [p for p in PATHS if (DATA / f"{p}.json").exists()]
+
+
+@dataclass
+class Inputs:
+    params: dict             # the model's He-init weights (before preprocess)
+    images: np.ndarray       # (cal_batches, cal_batch, C, H, W)
+    plan: dict               # the freeze's point plan
+
+
+def regenerate(spec: dict, tensors, n_points: int, seed: int) -> Inputs:
+    """The model, its weights, the images and the point plan of a spec,
+    from numpy alone (the port's model zoo and sampler)."""
+    from channel_pruning_tpu_torch.graph.ir import shapes_of
+    from channel_pruning_tpu_torch.models import zoo
+    from channel_pruning_tpu_torch.models.vgg import init_params
+    from channel_pruning_tpu_torch.pipeline import c3
+    from channel_pruning_tpu_torch.sampling.sampler import (make_point_plan,
+                                                            resnet_share_key)
+
+    kw = {"batch": spec["batch"]}
+    if spec.get("image_size"):
+        kw["image_size"] = spec["image_size"]
+    g0 = zoo.get_model(spec["model"], **kw)
+    params = init_params(g0, seed=spec["weight_seed"])
+    graph, _ = c3.preprocess(g0, params)
+    shape = (spec["cal_batches"], spec["cal_batch"], *graph.inputs[0].shape[1:])
+    imgs = images(shape, spec["image_seed"])
+    plan = make_point_plan(shapes_of(graph, batch=spec["cal_batch"]),
+                           list(tensors), spec["cal_batches"], n_points, seed,
+                           share_key=resnet_share_key(graph) if graph.sums else None)
+    return Inputs(params, imgs, plan)
+
+
+def inputs(path) -> Inputs:
+    """Regenerate a path's inputs from numpy and check the images', the
+    weights' and the point plan's sha256 against its artifact."""
+    art = path if isinstance(path, Artifact) else load(path)
+    fz = art.meta["freeze"]
+    got = regenerate(art.spec, fz["tensors"], fz["n_points"], fz["seed"])
+    want = art.meta["sha256"]
+    have = {"images": sha256_array(got.images), "weights": weights_sha(got.params),
+            "plan": plan_sha(got.plan)}
+    bad = [k for k in ("images", "weights", "plan") if have[k] != want[k]]
+    if bad:
+        raise ReferenceFault(f"{art.spec.get('path', path)}: regenerated "
+                             f"{', '.join(bad)} sha256 differ from the artifact's")
+    return got
+
+
+@dataclass
+class Report:
+    """Every gap `compare` measured; `faults` is empty when within the bars."""
+
+    path: str
+    lines: list[str] = field(default_factory=list)
+    faults: list[str] = field(default_factory=list)
+    freeze_gap: float = 0.0
+    freeze_gap_at: str = ""
+    n_tensors: int = 0
+    counts_equal: int = 0
+    masks_equal: int = 0
+    n_layers: int = 0
+    n_masks: int = 0
+    rmse_gap: float = 0.0
+    rmse_gap_at: str = ""
+    mask_gaps: dict = field(default_factory=dict)
+
+    def summary(self) -> str:
+        return (f"freeze max gap {self.freeze_gap:.1e} of RMS over "
+                f"{self.n_tensors} tensors ({self.freeze_gap_at}); counts "
+                f"{self.counts_equal}/{self.n_layers}; masks equal "
+                f"{self.masks_equal}/{self.n_masks}; rMSE-after max rel gap "
+                f"{self.rmse_gap:.1e} ({self.rmse_gap_at})")
+
+
+def _sha_gaps(art: Artifact, cache, report: Report) -> None:
+    want = art.meta["sha256"]
+    if isinstance(cache.inputs, np.ndarray):
+        if sha256_array(cache.inputs) != want["images"]:
+            report.faults.append("images: sha256 differs from the artifact's")
+    else:
+        report.faults.append("images: the cache holds no host array")
+    if plan_sha(cache.plan) != want["plan"]:
+        report.faults.append("point plan: sha256 differs from the artifact's")
+
+
+def _freeze_gaps(art: Artifact, cache, report: Report) -> None:
+    mine = freeze_digest(cache)
+    for t in sorted(art.digest):
+        m_ref, r_ref = art.digest[t]
+        if t not in mine:
+            report.faults.append(f"freeze: tensor {t} was not frozen")
+            continue
+        m, r = mine[t]
+        if m.shape != m_ref.shape:
+            report.faults.append(f"freeze: tensor {t} has {m.size} channels, "
+                                 f"want {m_ref.size}")
+            continue
+        scale = max(float(np.sqrt(np.mean(r_ref ** 2))), 1e-30)
+        gap = float(max(np.abs(m - m_ref).max(), np.abs(r - r_ref).max())) / scale
+        report.n_tensors += 1
+        if gap > report.freeze_gap or not report.freeze_gap_at:
+            report.freeze_gap, report.freeze_gap_at = gap, t
+        if not gap <= FREEZE_BAR:
+            report.faults.append(f"freeze: tensor {t} per-channel gap "
+                                 f"{gap:.2e} of its RMS > {FREEZE_BAR:.0e}")
+
+
+def compare(artifact, result, cache, raise_on_fault: bool = True) -> Report:
+    """Hold the port's `result` (a SolveResult) and its frozen `cache` to an
+    artifact. Raises ReferenceFault naming each layer or tensor outside a
+    bar (unless `raise_on_fault` is False); returns the report of every gap
+    either way."""
+    art = artifact if isinstance(artifact, Artifact) else load(artifact)
+    report = Report(art.meta.get("path", "?"))
+    _sha_gaps(art, cache, report)
+    _freeze_gaps(art, cache, report)
+
+    mine = report_rows(result.reports)
+    want = art.layers
+    if [r["conv"] for r in mine] != [r["conv"] for r in want]:
+        report.faults.append(f"layers: solved {[r['conv'] for r in mine]}, "
+                             f"want {[r['conv'] for r in want]}")
+    report.n_layers = len(want)
+    for g, w in zip(mine, want):
+        if g["conv"] != w["conv"]:
+            continue
+        # a 3C layer reports its decomposition (rank) and its arm (kept)
+        name = w["conv"] + (f" rank {w['rank']}" if w["rank"] is not None else "")
+        same = g["kept"] == w["kept"] and g["total"] == w["total"] \
+            and g["rank"] == w["rank"]
+        report.counts_equal += same
+        if not same:
+            report.faults.append(f"{name}: keep {g['kept']}/{g['total']} rank "
+                                 f"{g['rank']}, want {w['kept']}/{w['total']} "
+                                 f"rank {w['rank']}")
+        rel = abs(g["rmse_after"] - w["rmse_after"]) / max(abs(w["rmse_after"]), 1e-30)
+        if rel > report.rmse_gap or not report.rmse_gap_at:
+            report.rmse_gap, report.rmse_gap_at = rel, name
+        if not rel <= RMSE_BAR:
+            report.faults.append(f"{name}: rMSE after {g['rmse_after']:.6g}, "
+                                 f"want {w['rmse_after']:.6g} (rel gap "
+                                 f"{rel:.2e} > {RMSE_BAR:.0e})")
+        report.lines.append(
+            f"{name:<18s} keep {g['kept']}/{g['total']} (jax {w['kept']}) "
+            f"rMSE {g['rmse_before']:.5f} -> {g['rmse_after']:.5f} (jax "
+            f"{w['rmse_before']:.5f} -> {w['rmse_after']:.5f}, rel gap {rel:.1e})")
+
+    sel = result.selections
+    report.n_masks = len(art.selections)
+    for k, entry in art.selections.items():
+        if k not in sel:
+            report.faults.append(f"{k}: no selection")
+            continue
+        ref = unpack_mask(entry)
+        got = np.asarray(sel[k]).astype(bool).ravel()
+        if got.size != ref.size:
+            report.faults.append(f"{k}: mask over {got.size} channels, want {ref.size}")
+            continue
+        diff = int(max((got & ~ref).sum(), (ref & ~got).sum()))
+        report.mask_gaps[k] = diff
+        report.masks_equal += diff == 0
+        bar = max(MASK_BAR[0], int(MASK_BAR[1] * ref.size))
+        if diff > bar:
+            report.faults.append(f"{k}: {diff} channels kept by one package "
+                                 f"only > {bar} of {ref.size}")
+    gaps = ", ".join(f"{k} {v}" for k, v in report.mask_gaps.items() if v)
+    report.lines.append("mask gaps (channels kept by one package only): "
+                        + (gaps or "none"))
+    if report.faults and raise_on_fault:
+        raise ReferenceFault(f"{report.path}: " + "; ".join(report.faults)
+                             + "\n" + "\n".join(report.lines))
+    return report
