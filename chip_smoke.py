@@ -115,11 +115,13 @@ Phases, each printing its own lines; any failure raises (exit code != 0):
      both timed, within tests/test_native.py's bounds;
   5g. the JAX package's own answer at full size: for every artifact under
      channel_pruning_tpu_torch/reference/data (written on the CPU by
-     tools/jax_reference.py from the JAX package's `cli prune`; VGG-16 5x
-     and ResNet-50 2x at least), the numpy images (50 x 10 at 224²) and
-     He-init weights regenerated with their sha256 and the point plan's
-     checked, `cli prune --device cuda` of that path at its defaults on
-     those images (the CLI's freeze on the card, its solve and export),
+     tools/jax_reference.py from the JAX package's `cli prune`; those of
+     REFERENCE_REQUIRED at least), the numpy images (the path's set: 50 x
+     10 at 224² or 600², 20 x 10 at 299² for Xception) and He-init weights
+     regenerated with their sha256 and the point plan's checked, `cli
+     prune --device cuda` of that path with its spec's options (the paths
+     without a released table at `solve.band=bottom`) on those images (the
+     CLI's freeze on the card, its solve and export),
      then `reference.compare`: every kept count equal, each frozen
      channel's mean and RMS within 1e-4 of its tensor's RMS, at most
      max(2, 1% of the input channels) channels kept by one package only

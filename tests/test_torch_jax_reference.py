@@ -4,10 +4,14 @@ against it (channel_pruning_tpu_torch/reference).
 * Round trip on the tiny models: the JAX package's `cli prune` on the CPU
   writes an artifact, then the port's `cli prune` on the CPU, on the same
   regenerated numpy images, passes `compare` with every mask equal and a
-  freeze gap of at most 1e-5 of a tensor's RMS.
+  freeze gap of at most 1e-5 of a tensor's RMS. The 3C, Xception and
+  Faster-RCNN cases run at `solve.band=bottom`, as their full-size paths
+  do (tiny_xception under `-m slow`); there every count lands on its
+  target: the plan's, or a 3C arm's floor(c / 1.15).
 * `compare` raises on each kind of fault, naming the layer or tensor.
 * Each committed artifact loads, keeps the released tables' counts, and
-  its weights' and point plan's sha256 equal what the port regenerates.
+  its images', weights' and point plan's sha256 equal what the port
+  regenerates.
 * `-m slow`: the port on the CPU at full size (VGG-16 5x, 224², 50 x 10
   images) against the committed vgg16_5x artifact.
 """
@@ -24,6 +28,8 @@ from channel_pruning_tpu_torch.models.resnet import (RESNET50_2X_BRANCH2A,
                                                      RESNET50_2X_BRANCH2B,
                                                      RESNET50_2X_FILTERS)
 from channel_pruning_tpu_torch.models.vgg import VGG16_5X_CHANNELS
+from channel_pruning_tpu_torch.pipeline import c3
+from channel_pruning_tpu_torch.pipeline.prune import producer_conv
 from channel_pruning_tpu_torch.sampling.sampler import FrozenCache
 
 REPO = Path(__file__).resolve().parent.parent
@@ -33,10 +39,23 @@ REPO = Path(__file__).resolve().parent.parent
 # earlier layers give gauge-equivalent factors whose f32 rounding the later
 # fits amplify; the JAX package's own tiny answers move when its sums are
 # split over 8 host devices), on 16 x 4 within 1.4e-4
+#
+# The other three run as the full-size paths that take the bottom of the
+# band (reference.PATHS): 3C, tiny_xception at 64² (16 x 4 images: 640 rows
+# for its widest, 192-channel refit) and tiny_frcnn at 48² (8 x 2 images)
+# with its RPN conv cut to 32 outputs in both packages' model zoos, so that
+# the two 1x1 heads it feeds have fewer columns than the 160 rows
+BOTTOM = ["solve.band=bottom"]
 TINY = {
     "tiny_vgg": dict(model="tiny_vgg", speed=2.0),
     "tiny_resnet": dict(model="tiny_resnet", speed=1.2),
     "tiny_3c": dict(model="tiny_vgg", mode="3c", speed=2.0, cal_batches=16),
+    "tiny_3c_bottom": dict(model="tiny_vgg", mode="3c", speed=2.0,
+                           cal_batches=16, set=BOTTOM),
+    "tiny_xception": dict(model="tiny_xception", speed=2.0, image_size=64,
+                          cal_batches=16, set=BOTTOM),
+    "tiny_frcnn": dict(model="tiny_frcnn", speed=5.0, image_size=48, batch=2,
+                       cal_batches=8, cal_batch=2, set=BOTTOM),
 }
 COMMITTED = ["vgg16_5x", "resnet50_2x"]
 
@@ -59,6 +78,37 @@ def _port_run(art, work: Path):
     return res, FrozenCache.load(work / f"frozen_{s['cal_batches']}x{s['cal_batch']}.npz")
 
 
+def _narrow_rpn_builder(faster_rcnn, rewrite, width=32):
+    """tiny_frcnn's zoo builder with its RPN conv cut to `width` outputs
+    and the two heads' inputs to match (either package's modules)."""
+    def build(**kw):
+        g, p = faster_rcnn.build_tiny_frcnn(**kw)
+        rpn = p["rpn_conv/3x3"]
+        g, p = rewrite.set_conv(g, p, "rpn_conv/3x3", W=np.asarray(rpn["W"])[:width],
+                                b=np.asarray(rpn["b"])[:width])
+        for head in ("rpn_cls_score", "rpn_bbox_pred"):
+            g, p = rewrite.set_conv(g, p, head,
+                                    W=np.asarray(p[head]["W"])[:, :width])
+        return g
+    return build
+
+
+@pytest.fixture
+def narrow_rpn(monkeypatch):
+    """Both packages' zoos build tiny_frcnn with a 32-wide RPN conv."""
+    from channel_pruning_tpu.graph import rewrite as jax_rewrite
+    from channel_pruning_tpu.models import faster_rcnn as jax_frcnn
+    from channel_pruning_tpu.models import zoo as jax_zoo
+    from channel_pruning_tpu_torch.graph import rewrite
+    from channel_pruning_tpu_torch.models import faster_rcnn, zoo
+
+    for z, fr, rw in ((jax_zoo, jax_frcnn, jax_rewrite),
+                      (zoo, faster_rcnn, rewrite)):
+        monkeypatch.setitem(z.MODEL_REGISTRY, "tiny_frcnn",
+                            {**z.MODEL_REGISTRY["tiny_frcnn"],
+                             "build": _narrow_rpn_builder(fr, rw)})
+
+
 def _round_trip(name, tmp: Path):
     spec = ref.spec_for(name, **{"batch": 4, "cal_batches": 4, "cal_batch": 4,
                                  **TINY[name]})
@@ -68,8 +118,17 @@ def _round_trip(name, tmp: Path):
     return art, res, cache
 
 
-@pytest.mark.parametrize("name", sorted(TINY))
-def test_round_trip_tiny(name, tmp_path):
+# tiny_xception's round trip takes ~70 s on an 8-core CPU (the port's plain
+# CD over 18 consumers), past what tier-1 affords it
+SLOW_TINY = {"tiny_xception"}
+
+
+@pytest.mark.parametrize("name", [
+    pytest.param(n, marks=pytest.mark.slow) if n in SLOW_TINY else n
+    for n in sorted(TINY)])
+def test_round_trip_tiny(name, tmp_path, request):
+    if name == "tiny_frcnn":
+        request.getfixturevalue("narrow_rpn")
     art, res, cache = _round_trip(name, tmp_path)
     rep = ref.compare(art, res, cache)
     assert rep.n_layers == len(res.reports) > 0
@@ -78,6 +137,10 @@ def test_round_trip_tiny(name, tmp_path):
     assert rep.freeze_gap <= 1e-5
     assert rep.n_tensors == len(art.meta["freeze"]["tensors"])
     assert art.meta["conv_mults"]["after"] < art.meta["conv_mults"]["before"]
+    if "solve.band=bottom" in art.spec["set"]:
+        # the bottom of the band lands on each target
+        kept = _kept_by_target(art, ref.inputs(art).graph)
+        assert kept and all(k == t for k, t in kept.values()), kept
 
 
 @pytest.fixture(scope="module")
@@ -167,22 +230,40 @@ def test_hashes_see_dtype_shape_and_order():
     assert ref.plan_sha(plan) != ref.plan_sha({"t1": plan["t1"][::-1]})
 
 
-def _kept_by_target(art) -> dict[str, tuple[int, int]]:
-    """{layer: (kept, released target)} of a committed prune artifact."""
+def _kept_by_target(art, graph) -> dict[str, tuple[int, int]]:
+    """{layer: (kept, target)} of a prune artifact, or of a 3C
+    artifact's arms: the released tables (VGG-16 5x, ResNet-50 2x), a 3C
+    arm's floor(c / dic.c_ratio), elsewhere the plan's target of the
+    consumer's producer conv in the port's preprocessed `graph`."""
     out = {}
-    if art.spec["model"] == "vgg16":
+    if art.spec["mode"] == "3c":
+        ratio = art.meta["config"]["dic"]["c_ratio"]
+        for row in art.layers:
+            if row["kept"] is not None:
+                out[row["conv"]] = (row["kept"], int(row["total"] // ratio))
+        return out
+    if art.meta["path"] == "vgg16_5x":
         for row, (conv, t) in zip(art.layers, VGG16_5X_CHANNELS.items()):
             out[conv] = (row["kept"], t)
         return out
+    if art.meta["path"] == "resnet50_2x":
+        for row in art.layers:
+            c = row["conv"]
+            if c.endswith("branch2a"):
+                t = RESNET50_2X_FILTERS[c]
+            elif c.endswith("branch2b"):
+                t = RESNET50_2X_BRANCH2A[c.replace("branch2b", "branch2a")]
+            else:
+                t = RESNET50_2X_BRANCH2B[c.replace("branch2c", "branch2b")]
+            out[c] = (row["kept"], t)
+        return out
+    plan = c3.plan_uniform_targets(graph, art.spec["speed"],
+                                   rank_tol=art.meta["config"]["dic"]["rank_tol"])
+    assert plan == art.meta["targets"]["channel_targets"]
     for row in art.layers:
         c = row["conv"]
-        if c.endswith("branch2a"):
-            t = RESNET50_2X_FILTERS[c]
-        elif c.endswith("branch2b"):
-            t = RESNET50_2X_BRANCH2A[c.replace("branch2b", "branch2a")]
-        else:
-            t = RESNET50_2X_BRANCH2B[c.replace("branch2c", "branch2b")]
-        out[c] = (row["kept"], t)
+        out[c] = (row["kept"], plan[producer_conv(graph, graph.layer(c).bottoms[0],
+                                                  before=c)])
     return out
 
 
@@ -190,8 +271,11 @@ def _kept_by_target(art) -> dict[str, tuple[int, int]]:
 def test_committed_artifact(path):
     art = ref.load(path)
     assert art.meta["path"] == path and art.spec == ref.spec_for(path)
-    assert art.meta["shapes"]["images"][:2] == [ref.CAL_BATCHES, ref.CAL_BATCH]
-    kept = _kept_by_target(art)
+    assert art.meta["shapes"]["images"][:2] == [art.spec["cal_batches"],
+                                                art.spec["cal_batch"]]
+    # images, weights and plan regenerated by the port: equal sha256
+    inp = ref.inputs(art)
+    kept = _kept_by_target(art, inp.graph)
     if path == "vgg16_5x":
         assert len(art.layers) == 10
         assert all(k == t for k, t in kept.values()), kept
@@ -206,8 +290,6 @@ def test_committed_artifact(path):
     assert set(art.digest) == set(art.meta["freeze"]["tensors"])
     size = sum((ref.DATA / f"{path}{s}").stat().st_size for s in (".json", ".npz"))
     assert size < 1 << 20
-    # images, weights and plan regenerated by the port: equal sha256
-    ref.inputs(art)
 
 
 @pytest.mark.slow

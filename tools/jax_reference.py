@@ -22,8 +22,13 @@ CLI's own code. Written next to the port's reference module,
     before and after; the kept masks by consumer; the conv mults before
     and after.
 
+The provenance also records the spec's `--set` options (the paths other
+than the released tables' run at `solve.band=bottom`) and any cut of the
+calibration set below the CLI's 50 x 10 default (`reduced`).
+
 This tool is the one place that imports the JAX package beside the port.
-Paths: vgg16_5x, resnet50_2x, vgg16_3c_4x, xception_2x (reference.PATHS).
+Paths: vgg16_5x, resnet50_2x, vgg16_3c_4x, frcnn_600_5x, xception_2x
+(reference.PATHS).
 """
 from __future__ import annotations
 
@@ -53,6 +58,15 @@ def _commit() -> dict:
     return {"commit": git("rev-parse", "HEAD"),
             "jax_package_dirty": bool(git("status", "--porcelain", "--",
                                           "channel_pruning_tpu"))}
+
+
+def reduced(spec: dict) -> list[str]:
+    """The spec's cuts of the CLI's default calibration set, if any."""
+    n, b = spec["cal_batches"], spec["cal_batch"]
+    if (n, b) == (ref.CAL_BATCHES, ref.CAL_BATCH):
+        return []
+    return [f"calibration set {n} x {b} images, of the CLI's default "
+            f"{ref.CAL_BATCHES} x {ref.CAL_BATCH}"]
 
 
 def produce(path: str, spec: dict, work: Path, out_stem: Path) -> dict:
@@ -118,6 +132,7 @@ def produce(path: str, spec: dict, work: Path, out_stem: Path) -> dict:
             **_commit(), "jax": jax.__version__, "python": platform.python_version(),
             "cpu": platform.machine(), "cpu_count": os.cpu_count(),
             "cpu_wall_s": wall, "tool": "tools/jax_reference.py",
+            "set": list(spec.get("set", [])), "reduced": reduced(spec),
         },
         "config": json.loads(json.dumps(dataclasses.asdict(cfg), default=str)),
         "targets": json.loads(json.dumps(targets, default=int)),
