@@ -33,6 +33,19 @@ calibration set is cut to 20 x 10 images (2,000 rows a layer), so that the
 JAX package's CPU run ends in hours; image size, width and depth are the
 published ones on every path.
 
+The group lasso (`dic.grplasso=true`) is held on its designs instead of a
+whole path: `tools/capture_group_designs.py` records on the card, for every
+1x1 consumer of ResNet-50 2x, the rows its group search solved (250 of
+them, `ops/lasso.row_subsample`) and the search's arguments;
+`tools/jax_reference.py --group-designs` solves the same rows with the
+JAX package's `group_gram` and `search_alpha_group` on the CPU, and
+`data/resnet50_2x_grplasso_designs.(npz|json)` keeps the rows of the
+designs whose JAX solve fitted a CPU run, with both answers.
+`load_group_designs` reads them (sha256 checked), `solve_group` runs the
+port's search on one of them and `compare_group` holds its answer to the
+JAX package's: the count equal and at most max(2, 1% of c) channels kept
+by one package only (MASK_BAR); the alpha gap is measured, not held.
+
 Imports torch and the port; nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -402,3 +415,119 @@ def compare(artifact, result, cache, raise_on_fault: bool = True) -> Report:
         raise ReferenceFault(f"{report.path}: " + "; ".join(report.faults)
                              + "\n" + "\n".join(report.lines))
     return report
+
+
+GROUP_DESIGNS = "resnet50_2x_grplasso_designs"
+
+
+@dataclass
+class GroupDesign:
+    """One 1x1 consumer's group-lasso design: the rows X (rows, c) and Y
+    (rows, n) its search solved, and its JSON record (`args` of the
+    search, the card's answer `card` and the JAX package's `jax`)."""
+
+    name: str
+    X: np.ndarray
+    Y: np.ndarray
+    meta: dict
+
+    @property
+    def args(self) -> dict:
+        return self.meta["args"]
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.X.shape[1], self.Y.shape[1]
+
+
+def save_group_designs(stem, meta: dict, arrays: dict) -> None:
+    """`stem`.json (`meta`) and `stem`.npz (`X::<layer>`, `Y::<layer>`)."""
+    stem = Path(stem)
+    stem.parent.mkdir(parents=True, exist_ok=True)
+    stem.with_suffix(".json").write_text(json.dumps(meta, indent=1) + "\n")
+    np.savez_compressed(stem.with_suffix(".npz"), **arrays)
+
+
+def load_group_designs(stem=GROUP_DESIGNS) -> tuple[dict, dict[str, GroupDesign]]:
+    """(the JSON, {layer: GroupDesign}) of a designs artifact, by name
+    under data/ or by stem; each design's rows checked against the sha256
+    its record holds (ReferenceFault on a mismatch)."""
+    stem = DATA / stem if isinstance(stem, str) and "/" not in stem else Path(stem)
+    stem = stem.with_suffix("")
+    meta = json.loads(stem.with_suffix(".json").read_text())
+    out = {}
+    with np.load(stem.with_suffix(".npz")) as z:
+        for name, rec in meta["designs"].items():
+            X, Y = z[f"X::{name}"], z[f"Y::{name}"]
+            for key, a in (("X", X), ("Y", Y)):
+                if sha256_array(a) != rec["sha256"][key]:
+                    raise ReferenceFault(f"{name}: {key}'s sha256 differs "
+                                         "from its record")
+            out[name] = GroupDesign(name, X, Y, rec)
+    return meta, out
+
+
+def solve_group(design: GroupDesign, device="cpu") -> tuple[np.ndarray, float, int]:
+    """The port's answer on a design: `ops/lasso.group_gram` of its rows and
+    `search_alpha_group` with its recorded arguments, on `device` (K3 on a
+    card, its plain version on the CPU)."""
+    import torch
+
+    from channel_pruning_tpu_torch.ops import lasso
+
+    X = torch.from_numpy(np.ascontiguousarray(design.X)).to(device)
+    Y = torch.from_numpy(np.ascontiguousarray(design.Y)).to(device)
+    return lasso.search_alpha_group(lasso.group_gram(X, Y), **design.args)
+
+
+@dataclass
+class GroupGap:
+    """`compare_group`'s measure of one design; `faults` empty when within
+    the bars."""
+
+    name: str
+    c: int
+    n: int
+    count: int
+    want_count: int
+    apart: int
+    bar: int
+    alpha: float
+    want_alpha: float
+    faults: list[str] = field(default_factory=list)
+
+    @property
+    def alpha_gap(self) -> float:
+        return abs(self.alpha - self.want_alpha) / max(abs(self.want_alpha), 1e-30)
+
+    def line(self) -> str:
+        return (f"{self.name} (c, n) = ({self.c}, {self.n}): keep {self.count} "
+                f"(jax {self.want_count}); {self.apart} channels kept by one "
+                f"package only (bar {self.bar}); alpha {self.alpha:.6g} (jax "
+                f"{self.want_alpha:.6g}, rel gap {self.alpha_gap:.1e})")
+
+
+def compare_group(design: GroupDesign, mask, alpha: float,
+                  count: int) -> GroupGap:
+    """Hold an answer (mask, alpha, count) on `design` to the JAX package's
+    (the design's `jax` record): the count equal, at most max(2, 1% of c)
+    channels kept by one package only. The alpha gap is measured only."""
+    want = design.meta["jax"]
+    ref = unpack_mask(want["mask"])
+    got = np.asarray(mask).astype(bool).ravel()
+    c, n = design.shape
+    gap = GroupGap(design.name, c, n, int(count), int(want["count"]), 0,
+                   max(MASK_BAR[0], int(MASK_BAR[1] * c)), float(alpha),
+                   float(want["alpha"]))
+    if got.size != ref.size:
+        gap.faults.append(f"{design.name}: mask over {got.size} channels, "
+                          f"want {ref.size}")
+        return gap
+    gap.apart = int(max((got & ~ref).sum(), (ref & ~got).sum()))
+    if gap.count != gap.want_count or int(got.sum()) != gap.count:
+        gap.faults.append(f"{design.name}: keep {gap.count} ({int(got.sum())} "
+                          f"in the mask), want {gap.want_count}")
+    if gap.apart > gap.bar:
+        gap.faults.append(f"{design.name}: {gap.apart} channels kept by one "
+                          f"package only > {gap.bar} of {c}")
+    return gap

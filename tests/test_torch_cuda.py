@@ -229,6 +229,19 @@ def test_group_kernel_matches_plain_version(card, c, n, n_sweeps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,n,n_sweeps", [(64, 64, 200), (256, 1024, 3),
+                                          (1024, 512, 3)])
+def test_group_kernel_at_resnet50_grplasso_edge_classes(card, c, n, n_sweeps):
+    """ResNet-50 2x's 1x1 classes at the edges of K3's plans: (64, 64), 11
+    rows a block of 6, 16 threads a column; (256, 1024), Q in device
+    memory, one thread a column; (1024, 512), 110 of a block's 171 rows of
+    Q in the spare shared memory. B and stats bit for bit against the
+    plain version, one launch counted."""
+    gram, alphas = _group_problem(c + 3 * n, c, n, card)
+    _assert_group_equal(*_group_vs_plain(gram, alphas, n_sweeps))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("c,n,n_alpha,variant", [
     (37, 64, 16, "smem"),      # c not a multiple of K: blocks of 4 and 5 rows
     (300, 1100, 16, "global"),  # 37-38 rows a block

@@ -145,3 +145,44 @@ def test_consecutive_rows_have_different_owners():
         owner = {i: r for r in range(k) for i in group_cd.block_rows(c, k, r)}
         assert all(owner[j] != owner[j + 1] for j in range(c - 1))
     assert list(group_cd.block_rows(37, 8, 5)) == [5, 13, 21, 29]
+
+
+def six_wide(variant, k, nbytes):
+    """The H100 that ran ResNet-50 2x: 17 clusters of 6 resident at once,
+    fewer than 16 of 7 or of 8, so 16 alphas take K = 6."""
+    return {6: 17, 7: 15, 8: 14}.get(k) or h100_like(variant, k, nbytes)
+
+
+# ResNet-50 2x's 1x1 consumers under dic.grplasso, (c, n): the variant on a
+# card that fits 16 clusters of 8 and on one that fits 16 of 6, and at K = 6
+# the rows a block owns and how many of its rows of Q the global variant
+# keeps in shared memory
+@pytest.mark.parametrize("c,n,variant8,variant6,rows6,q_rows6", [
+    (64, 64, "smem", "smem", 11, 11),
+    (256, 64, "smem", "smem", 43, 43),
+    (64, 256, "smem", "smem", 11, 11),
+    (256, 128, "smem", "smem", 43, 43),
+    (512, 128, "smem", "global", 86, 86),     # 86 rows of G: 264 KB at K = 6
+    (128, 512, "smem", "smem", 22, 22),       # 11 rows of Q a thread
+    (512, 256, "global", "global", 86, 86),   # 22 rows a thread: no registers
+    (256, 1024, "global", "global", 43, 43),
+    (1024, 256, "global", "global", 171, 171),
+    (1024, 512, "global", "global", 171, 110),
+    (2048, 512, "global", "global", 342, 110),
+    (512, 2048, "global", "global", 86, 25),
+])
+def test_plan_of_each_resnet50_grplasso_class(c, n, variant8, variant6, rows6,
+                                              q_rows6):
+    wide = group_cd.plan_launch(c, n, 16, h100_like)
+    assert (wide.variant, wide.k, wide.waves) == (variant8, 8, 1)
+    plan = group_cd.plan_launch(c, n, 16, six_wide)
+    assert (plan.variant, plan.k, plan.waves, plan.rows) == (variant6, 6, 1, rows6)
+    assert plan.smem_bytes + group_cd.STATIC_SMEM <= group_cd.SMEM_LIMIT
+    if plan.variant == "global":
+        assert plan.smem_bytes == 4 * n * (3 + q_rows6)
+    else:
+        assert group_cd.registers_hold(n, rows6)
+        assert plan.smem_bytes == 4 * (3 * n + rows6 * (c + 2 * n))
+    owned = sorted(i for r in range(plan.k)
+                   for i in group_cd.block_rows(c, plan.k, r))
+    assert owned == list(range(c))

@@ -29,6 +29,21 @@ calibration set below the CLI's 50 x 10 default (`reduced`).
 This tool is the one place that imports the JAX package beside the port.
 Paths: vgg16_5x, resnet50_2x, vgg16_3c_4x, frcnn_600_5x, xception_2x
 (reference.PATHS).
+
+The group lasso is answered on captured designs instead of a whole path:
+
+    JAX_PLATFORMS=cpu python tools/jax_reference.py \
+        --group-designs work/resnet50_2x_grplasso_designs.npz \
+        --layers res2a_branch2a,res2a_branch2c [--out STEM]
+
+reads the rows and arguments `tools/capture_group_designs.py` recorded on
+the card, runs the JAX package's `group_gram` and `search_alpha_group` on
+each named design (all by default) on one CPU device, and adds the rows,
+the card's record and the JAX answer (mask, alpha, count, seconds) to
+`STEM.(npz|json)` (default the port's
+reference/data/resnet50_2x_grplasso_designs), after each design; an
+existing STEM is extended. The provenance lists the captured designs that
+are left out, by (c, n).
 """
 from __future__ import annotations
 
@@ -154,14 +169,87 @@ def produce(path: str, spec: dict, work: Path, out_stem: Path) -> dict:
     return meta
 
 
+def answer_group_designs(src: Path, layers: list[str] | None, out: Path,
+                         notes: dict) -> dict:
+    """The JAX package's `search_alpha_group` on each captured design of
+    `src` named in `layers` (all by default), written into `out` after
+    each; returns the metadata."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    import numpy as np
+
+    from channel_pruning_tpu.ops import lasso as jlasso
+
+    src = Path(src).with_suffix("")
+    captured = json.loads(src.with_suffix(".json").read_text())
+    names = layers or list(captured["designs"])
+    arrays: dict = {}
+    if out.with_suffix(".json").exists():
+        meta, have = ref.load_group_designs(out)
+        for name, d in have.items():
+            arrays[f"X::{name}"], arrays[f"Y::{name}"] = d.X, d.Y
+    else:
+        meta = {"path": captured["path"], "provenance": captured["provenance"],
+                "designs": {}}
+    meta["provenance"]["jax_answer"] = {
+        **_commit(), "jax": jax.__version__, "python": platform.python_version(),
+        "cpu": platform.machine(), "cpu_count": os.cpu_count(),
+        "devices": 1, "tool": "tools/jax_reference.py --group-designs",
+        "notes": {**meta["provenance"].get("jax_answer", {}).get("notes", {}),
+                  **notes}}
+    with np.load(src.with_suffix(".npz")) as z:
+        for name in names:
+            rec = dict(captured["designs"][name])
+            X, Y = z[f"X::{name}"], z[f"Y::{name}"]
+            t = time.perf_counter()
+            gram = jlasso.group_gram(jnp.asarray(X), jnp.asarray(Y))
+            mask, alpha, count = jlasso.search_alpha_group(gram, **rec["args"])
+            seconds = time.perf_counter() - t
+            rec["jax"] = {"mask": ref.pack_selections({"m": mask})["m"],
+                          "alpha": float(alpha), "count": int(count),
+                          "seconds": seconds}
+            meta["designs"][name] = rec
+            arrays[f"X::{name}"], arrays[f"Y::{name}"] = X, Y
+            order = [k for k in captured["designs"] if k in meta["designs"]]
+            meta["designs"] = {k: meta["designs"][k] for k in order}
+            meta["provenance"]["left_out"] = {
+                k: [d["c"], d["n"]] for k, d in captured["designs"].items()
+                if k not in meta["designs"]}
+            ref.save_group_designs(out, meta, arrays)
+            card = rec["card"]
+            gap = ref.compare_group(ref.GroupDesign(name, X, Y, rec),
+                                    ref.unpack_mask(card["mask"]),
+                                    card["alpha"], card["count"])
+            print(f"[jax_reference] the card's answer against the JAX "
+                  f"package's: {gap.line()}; JAX {seconds:.1f}s", flush=True)
+    return meta
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", required=True, choices=sorted(ref.PATHS))
+    ap.add_argument("--path", choices=sorted(ref.PATHS))
+    ap.add_argument("--group-designs", default=None,
+                    help="a designs .npz of tools/capture_group_designs.py")
+    ap.add_argument("--layers", default=None,
+                    help="comma-separated designs to answer (default all)")
+    ap.add_argument("--note", action="append", default=[],
+                    help="KEY=VALUE added to the answer's provenance")
     ap.add_argument("--work", default=None,
                     help="the CLI's work dir (default work/jax_reference/<path>)")
     ap.add_argument("--out", default=None,
                     help="artifact stem (default the port's reference/data/<path>)")
     a = ap.parse_args(argv)
+    if a.group_designs:
+        out = Path(a.out or ref.DATA / ref.GROUP_DESIGNS)
+        notes = dict(kv.split("=", 1) for kv in a.note)
+        answer_group_designs(Path(a.group_designs),
+                             a.layers.split(",") if a.layers else None, out,
+                             notes)
+        return 0
+    if not a.path:
+        ap.error("--path or --group-designs is required")
     work = Path(a.work or ROOT / "work" / "jax_reference" / a.path)
     out = Path(a.out or ref.DATA / a.path)
     meta = produce(a.path, ref.spec_for(a.path), work, out)
