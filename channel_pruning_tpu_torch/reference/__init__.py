@@ -46,6 +46,16 @@ port's search on one of them and `compare_group` holds its answer to the
 JAX package's: the count equal and at most max(2, 1% of c) channels kept
 by one package only (MASK_BAR); the alpha gap is measured, not held.
 
+The single-task LASSO searches of the three paths whose whole-path masks
+miss that bar (LASSO_DESIGN_PATHS) are held the same way: the capture tool
+(`--path`) records each search's Gram form G and b on the card, whole and
+as `_fused_search` received them, with its arguments and answer;
+`tools/jax_reference.py --lasso-designs` runs the JAX package's
+`fused_search_alpha` on the same G and b; `data/<path>_designs.(npz|json)`
+keeps the first layer of each (c, n, kh·kw) class with c <= 512 and the
+layers where the whole paths parted. `load_lasso_designs`, `solve_lasso`
+and the shared `compare_design` read, re-solve and hold them.
+
 Imports torch and the port; nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
@@ -251,6 +261,21 @@ class Inputs:
     graph: object = None     # the graph after preprocess, as the CLI solves it
 
 
+def calibration_images(spec: dict, graph=None) -> np.ndarray:
+    """The spec's calibration set (`images` at its model's input shape), as
+    both CLIs are handed it; `graph` the model, built from the spec if
+    None."""
+    if graph is None:
+        from channel_pruning_tpu_torch.models import zoo
+
+        kw = {"batch": spec["batch"]}
+        if spec.get("image_size"):
+            kw["image_size"] = spec["image_size"]
+        graph = zoo.get_model(spec["model"], **kw)
+    shape = (spec["cal_batches"], spec["cal_batch"], *graph.inputs[0].shape[1:])
+    return images(shape, spec["image_seed"])
+
+
 def regenerate(spec: dict, tensors, n_points: int, seed: int) -> Inputs:
     """The model, its weights, the images and the point plan of a spec,
     from numpy alone (the port's model zoo and sampler)."""
@@ -267,8 +292,7 @@ def regenerate(spec: dict, tensors, n_points: int, seed: int) -> Inputs:
     g0 = zoo.get_model(spec["model"], **kw)
     params = init_params(g0, seed=spec["weight_seed"])
     graph, _ = c3.preprocess(g0, params)
-    shape = (spec["cal_batches"], spec["cal_batch"], *graph.inputs[0].shape[1:])
-    imgs = images(shape, spec["image_seed"])
+    imgs = calibration_images(spec, graph)
     plan = make_point_plan(shapes_of(graph, batch=spec["cal_batch"]),
                            list(tensors), spec["cal_batches"], n_points, seed,
                            share_key=resnet_share_key(graph) if graph.sums else None)
@@ -418,6 +442,13 @@ def compare(artifact, result, cache, raise_on_fault: bool = True) -> Report:
 
 
 GROUP_DESIGNS = "resnet50_2x_grplasso_designs"
+# the paths whose single-task LASSO searches are held on committed designs
+# (data/<path>_designs), their whole-path masks being past the bar
+LASSO_DESIGN_PATHS = ("vgg16_3c_4x", "frcnn_600_5x", "xception_2x")
+
+
+def lasso_designs_stem(path: str) -> str:
+    return f"{path}_designs"
 
 
 @dataclass
@@ -430,6 +461,7 @@ class GroupDesign:
     X: np.ndarray
     Y: np.ndarray
     meta: dict
+    ARRAYS = ("X", "Y")
 
     @property
     def args(self) -> dict:
@@ -440,31 +472,64 @@ class GroupDesign:
         return self.X.shape[1], self.Y.shape[1]
 
 
-def save_group_designs(stem, meta: dict, arrays: dict) -> None:
-    """`stem`.json (`meta`) and `stem`.npz (`X::<layer>`, `Y::<layer>`)."""
+@dataclass
+class LassoDesign:
+    """One layer's single-task LASSO search: its Gram form G (c, c), whole,
+    and b (c,), f32 as the search received them, and its JSON record:
+    `n_samples` (the rows of Z), `search` ("fused": `ops/lasso.
+    _fused_search`; "host": the host-stepped `search_alpha`), `args`, the
+    card's answer `card` and the JAX package's `jax`."""
+
+    name: str
+    G: np.ndarray
+    b: np.ndarray
+    meta: dict
+    ARRAYS = ("G", "b")
+
+    @property
+    def args(self) -> dict:
+        return self.meta["args"]
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.meta["c"], self.meta["n"]
+
+
+def save_designs(stem, meta: dict, arrays: dict) -> None:
+    """`stem`.json (`meta`) and `stem`.npz (`<array>::<layer>`)."""
     stem = Path(stem)
     stem.parent.mkdir(parents=True, exist_ok=True)
     stem.with_suffix(".json").write_text(json.dumps(meta, indent=1) + "\n")
     np.savez_compressed(stem.with_suffix(".npz"), **arrays)
 
 
-def load_group_designs(stem=GROUP_DESIGNS) -> tuple[dict, dict[str, GroupDesign]]:
-    """(the JSON, {layer: GroupDesign}) of a designs artifact, by name
-    under data/ or by stem; each design's rows checked against the sha256
-    its record holds (ReferenceFault on a mismatch)."""
+def load_designs(stem, kind=GroupDesign) -> tuple[dict, dict]:
+    """(the JSON, {layer: `kind`}) of a designs artifact, by name under
+    data/ or by stem; each design's arrays checked against the sha256 its
+    record holds (ReferenceFault on a mismatch)."""
     stem = DATA / stem if isinstance(stem, str) and "/" not in stem else Path(stem)
     stem = stem.with_suffix("")
     meta = json.loads(stem.with_suffix(".json").read_text())
     out = {}
     with np.load(stem.with_suffix(".npz")) as z:
         for name, rec in meta["designs"].items():
-            X, Y = z[f"X::{name}"], z[f"Y::{name}"]
-            for key, a in (("X", X), ("Y", Y)):
+            arrays = [z[f"{key}::{name}"] for key in kind.ARRAYS]
+            for key, a in zip(kind.ARRAYS, arrays):
                 if sha256_array(a) != rec["sha256"][key]:
                     raise ReferenceFault(f"{name}: {key}'s sha256 differs "
                                          "from its record")
-            out[name] = GroupDesign(name, X, Y, rec)
+            out[name] = kind(name, *arrays, rec)
     return meta, out
+
+
+def load_group_designs(stem=GROUP_DESIGNS) -> tuple[dict, dict[str, GroupDesign]]:
+    return load_designs(stem, GroupDesign)
+
+
+def load_lasso_designs(path) -> tuple[dict, dict[str, LassoDesign]]:
+    """A committed path's LASSO designs (`vgg16_3c_4x`) or a stem."""
+    stem = lasso_designs_stem(path) if path in LASSO_DESIGN_PATHS else path
+    return load_designs(stem, LassoDesign)
 
 
 def solve_group(design: GroupDesign, device="cpu") -> tuple[np.ndarray, float, int]:
@@ -480,9 +545,28 @@ def solve_group(design: GroupDesign, device="cpu") -> tuple[np.ndarray, float, i
     return lasso.search_alpha_group(lasso.group_gram(X, Y), **design.args)
 
 
+def solve_lasso(design: LassoDesign, device="cpu") -> tuple[np.ndarray, float, int]:
+    """The port's answer on a design: its recorded search (`_fused_search`
+    or `search_alpha`) on the stored G and b with its recorded arguments,
+    on `device` (K1 / K2 on a card, their plain version on the CPU)."""
+    import torch
+
+    from channel_pruning_tpu_torch.ops import lasso
+
+    G = torch.from_numpy(np.ascontiguousarray(design.G)).to(device)
+    b = torch.from_numpy(np.ascontiguousarray(design.b)).to(device)
+    n, a = design.meta["n_samples"], design.args
+    if design.meta["search"] == "host":
+        return lasso.search_alpha(lasso.LassoGram(G, b, n), **a)
+    out = lasso._fused_search(G, b, n, a["rank"], a["rank_tol"], a["alpha0"],
+                              a["grid_size"], a["max_rounds"], a["n_sweeps"],
+                              a["prefer"])
+    return out.mask.cpu().numpy(), float(out.alpha), int(out.support)
+
+
 @dataclass
-class GroupGap:
-    """`compare_group`'s measure of one design; `faults` empty when within
+class DesignGap:
+    """`compare_design`'s measure of one design; `faults` empty when within
     the bars."""
 
     name: str
@@ -507,18 +591,18 @@ class GroupGap:
                 f"{self.want_alpha:.6g}, rel gap {self.alpha_gap:.1e})")
 
 
-def compare_group(design: GroupDesign, mask, alpha: float,
-                  count: int) -> GroupGap:
-    """Hold an answer (mask, alpha, count) on `design` to the JAX package's
-    (the design's `jax` record): the count equal, at most max(2, 1% of c)
-    channels kept by one package only. The alpha gap is measured only."""
+def compare_design(design, mask, alpha: float, count: int) -> DesignGap:
+    """Hold an answer (mask, alpha, count) on a group or LASSO `design` to
+    the JAX package's (the design's `jax` record): the count equal, at most
+    max(2, 1% of c) channels kept by one package only. The alpha gap is
+    measured only."""
     want = design.meta["jax"]
     ref = unpack_mask(want["mask"])
     got = np.asarray(mask).astype(bool).ravel()
     c, n = design.shape
-    gap = GroupGap(design.name, c, n, int(count), int(want["count"]), 0,
-                   max(MASK_BAR[0], int(MASK_BAR[1] * c)), float(alpha),
-                   float(want["alpha"]))
+    gap = DesignGap(design.name, c, n, int(count), int(want["count"]), 0,
+                    max(MASK_BAR[0], int(MASK_BAR[1] * c)), float(alpha),
+                    float(want["alpha"]))
     if got.size != ref.size:
         gap.faults.append(f"{design.name}: mask over {got.size} channels, "
                           f"want {ref.size}")
@@ -531,3 +615,6 @@ def compare_group(design: GroupDesign, mask, alpha: float,
         gap.faults.append(f"{design.name}: {gap.apart} channels kept by one "
                           f"package only > {gap.bar} of {c}")
     return gap
+
+
+compare_group = compare_design      # the group kind's name since it came first

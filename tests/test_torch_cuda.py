@@ -242,6 +242,29 @@ def test_group_kernel_at_resnet50_grplasso_edge_classes(card, c, n, n_sweeps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("path,name", [("vgg16_3c_4x", "conv4_3"),
+                                       ("frcnn_600_5x", "rpn_cls_score"),
+                                       ("xception_2x", "mid1_sep3_pw")])
+def test_fused_search_on_committed_lasso_designs(card, path, name):
+    """One committed full-width LASSO design a path (the G and b the card's
+    run gave the search): the fused search on K1 returns the card's
+    recorded answer bit for bit and holds the JAX package's within
+    `compare_design`'s bars (count equal, at most max(2, 1% of c)
+    channels apart)."""
+    from channel_pruning_tpu_torch import reference
+
+    d = reference.load_lasso_designs(path)[1][name]
+    before = lasso_cd.LAUNCHES
+    mask, alpha, count = reference.solve_lasso(d, card)
+    assert lasso_cd.LAUNCHES > before
+    rec = d.meta["card"]
+    np.testing.assert_array_equal(mask, reference.unpack_mask(rec["mask"]))
+    assert (alpha, count) == (rec["alpha"], rec["count"])
+    gap = reference.compare_design(d, mask, alpha, count)
+    assert not gap.faults, gap.line()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("c,n,n_alpha,variant", [
     (37, 64, 16, "smem"),      # c not a multiple of K: blocks of 4 and 5 rows
     (300, 1100, 16, "global"),  # 37-38 rows a block

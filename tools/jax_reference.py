@@ -44,6 +44,18 @@ the card's record and the JAX answer (mask, alpha, count, seconds) to
 reference/data/resnet50_2x_grplasso_designs), after each design; an
 existing STEM is extended. The provenance lists the captured designs that
 are left out, by (c, n).
+
+The single-task LASSO searches of VGG-16 3C 4x, Faster-RCNN 600² 5x and
+Xception 2x are answered the same way:
+
+    JAX_PLATFORMS=cpu python tools/jax_reference.py \
+        --lasso-designs work/xception_2x_designs.npz [--out STEM]
+
+reads the G and b `tools/capture_group_designs.py --path` recorded on the
+card and runs the JAX package's `fused_search_alpha` (`search_alpha` for a
+host-stepped capture) on each on one CPU device; default STEM the port's
+reference/data/<path>_designs. The capture's own `left_out` is carried
+over.
 """
 from __future__ import annotations
 
@@ -169,62 +181,95 @@ def produce(path: str, spec: dict, work: Path, out_stem: Path) -> dict:
     return meta
 
 
-def answer_group_designs(src: Path, layers: list[str] | None, out: Path,
-                         notes: dict) -> dict:
-    """The JAX package's `search_alpha_group` on each captured design of
-    `src` named in `layers` (all by default), written into `out` after
-    each; returns the metadata."""
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
+def _jax_group(arrays: dict, rec: dict):
+    """The JAX package's group search on a group design's rows."""
     import jax.numpy as jnp
-    import numpy as np
 
     from channel_pruning_tpu.ops import lasso as jlasso
 
+    gram = jlasso.group_gram(jnp.asarray(arrays["X"]), jnp.asarray(arrays["Y"]))
+    return jlasso.search_alpha_group(gram, **rec["args"])
+
+
+def _jax_lasso(arrays: dict, rec: dict):
+    """The JAX package's single-task search on a LASSO design's G and b:
+    `fused_search_alpha` (the one-program `_fused_search`) or, for a
+    host-stepped capture, `search_alpha`."""
+    import jax.numpy as jnp
+
+    from channel_pruning_tpu.ops import lasso as jlasso
+
+    gram = jlasso.LassoGram(jnp.asarray(arrays["G"]), jnp.asarray(arrays["b"]),
+                            rec["n_samples"])
+    search = jlasso.search_alpha if rec["search"] == "host" \
+        else jlasso.fused_search_alpha
+    return search(gram, **rec["args"])
+
+
+KINDS = {"group": (ref.GroupDesign, _jax_group),
+         "lasso": (ref.LassoDesign, _jax_lasso)}
+
+
+def answer_designs(src: Path, layers: list[str] | None, out: Path,
+                   notes: dict, kind: str = "group") -> dict:
+    """The JAX package's search on each captured design of `src` named in
+    `layers` (all by default), written into `out` after each (an existing
+    `out` is extended); `kind` "group" (`--group-designs`) or "lasso"
+    (`--lasso-designs`). Returns the metadata."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import numpy as np
+
+    design_cls, solve = KINDS[kind]
     src = Path(src).with_suffix("")
     captured = json.loads(src.with_suffix(".json").read_text())
     names = layers or list(captured["designs"])
     arrays: dict = {}
     if out.with_suffix(".json").exists():
-        meta, have = ref.load_group_designs(out)
+        meta, have = ref.load_designs(out, design_cls)
         for name, d in have.items():
-            arrays[f"X::{name}"], arrays[f"Y::{name}"] = d.X, d.Y
+            for key in design_cls.ARRAYS:
+                arrays[f"{key}::{name}"] = getattr(d, key)
     else:
-        meta = {"path": captured["path"], "provenance": captured["provenance"],
-                "designs": {}}
+        meta = {"path": captured["path"],
+                "provenance": dict(captured["provenance"]), "designs": {}}
     meta["provenance"]["jax_answer"] = {
         **_commit(), "jax": jax.__version__, "python": platform.python_version(),
         "cpu": platform.machine(), "cpu_count": os.cpu_count(),
-        "devices": 1, "tool": "tools/jax_reference.py --group-designs",
+        "devices": 1, "tool": f"tools/jax_reference.py --{kind}-designs",
         "notes": {**meta["provenance"].get("jax_answer", {}).get("notes", {}),
                   **notes}}
+    left0 = captured["provenance"].get("left_out", {})
     with np.load(src.with_suffix(".npz")) as z:
         for name in names:
             rec = dict(captured["designs"][name])
-            X, Y = z[f"X::{name}"], z[f"Y::{name}"]
+            got = {key: z[f"{key}::{name}"] for key in design_cls.ARRAYS}
             t = time.perf_counter()
-            gram = jlasso.group_gram(jnp.asarray(X), jnp.asarray(Y))
-            mask, alpha, count = jlasso.search_alpha_group(gram, **rec["args"])
+            mask, alpha, count = solve(got, rec)
             seconds = time.perf_counter() - t
             rec["jax"] = {"mask": ref.pack_selections({"m": mask})["m"],
                           "alpha": float(alpha), "count": int(count),
                           "seconds": seconds}
             meta["designs"][name] = rec
-            arrays[f"X::{name}"], arrays[f"Y::{name}"] = X, Y
+            for key, arr in got.items():
+                arrays[f"{key}::{name}"] = arr
             order = [k for k in captured["designs"] if k in meta["designs"]]
             meta["designs"] = {k: meta["designs"][k] for k in order}
-            meta["provenance"]["left_out"] = {
+            meta["provenance"]["left_out"] = {**left0, **{
                 k: [d["c"], d["n"]] for k, d in captured["designs"].items()
-                if k not in meta["designs"]}
-            ref.save_group_designs(out, meta, arrays)
+                if k not in meta["designs"]}}
+            ref.save_designs(out, meta, arrays)
             card = rec["card"]
-            gap = ref.compare_group(ref.GroupDesign(name, X, Y, rec),
-                                    ref.unpack_mask(card["mask"]),
-                                    card["alpha"], card["count"])
+            gap = ref.compare_design(design_cls(name, *got.values(), rec),
+                                     ref.unpack_mask(card["mask"]),
+                                     card["alpha"], card["count"])
             print(f"[jax_reference] the card's answer against the JAX "
                   f"package's: {gap.line()}; JAX {seconds:.1f}s", flush=True)
     return meta
+
+
+answer_group_designs = answer_designs      # its name before the LASSO kind
 
 
 def main(argv=None) -> int:
@@ -232,6 +277,9 @@ def main(argv=None) -> int:
     ap.add_argument("--path", choices=sorted(ref.PATHS))
     ap.add_argument("--group-designs", default=None,
                     help="a designs .npz of tools/capture_group_designs.py")
+    ap.add_argument("--lasso-designs", default=None,
+                    help="a LASSO designs .npz of tools/capture_group_designs.py "
+                         "--path")
     ap.add_argument("--layers", default=None,
                     help="comma-separated designs to answer (default all)")
     ap.add_argument("--note", action="append", default=[],
@@ -241,15 +289,20 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="artifact stem (default the port's reference/data/<path>)")
     a = ap.parse_args(argv)
-    if a.group_designs:
-        out = Path(a.out or ref.DATA / ref.GROUP_DESIGNS)
+    if a.group_designs or a.lasso_designs:
+        kind = "group" if a.group_designs else "lasso"
+        src = Path(a.group_designs or a.lasso_designs)
+        if kind == "group":
+            out = Path(a.out or ref.DATA / ref.GROUP_DESIGNS)
+        else:
+            path = json.loads(src.with_suffix(".json").read_text())["path"]
+            out = Path(a.out or ref.DATA / ref.lasso_designs_stem(path))
         notes = dict(kv.split("=", 1) for kv in a.note)
-        answer_group_designs(Path(a.group_designs),
-                             a.layers.split(",") if a.layers else None, out,
-                             notes)
+        answer_designs(src, a.layers.split(",") if a.layers else None, out,
+                       notes, kind)
         return 0
     if not a.path:
-        ap.error("--path or --group-designs is required")
+        ap.error("--path, --group-designs or --lasso-designs is required")
     work = Path(a.work or ROOT / "work" / "jax_reference" / a.path)
     out = Path(a.out or ref.DATA / a.path)
     meta = produce(a.path, ref.spec_for(a.path), work, out)
