@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from channel_pruning_tpu_torch.kernels import group_cd, lasso_cd
+from channel_pruning_tpu_torch.utils import trace
 
 
 class LassoGram(NamedTuple):
@@ -194,6 +195,17 @@ class FusedSearch(NamedTuple):
     alpha: torch.Tensor     # () float32
     support: torch.Tensor   # () int64, mask.sum()
     grids: torch.Tensor     # () int64, the grids the search solved
+    # (2,) int64 with tracing on (utils/trace), else None: the sweeps K1/K2
+    # ran over the alphas that were not +inf, and those alphas
+    cd: torch.Tensor | None = None
+
+
+def count_sweeps(cd: torch.Tensor | None) -> None:
+    """Add a search's `FusedSearch.cd`, read on the host, to the counters
+    `cd.sweeps` and `cd.live_alphas`."""
+    if cd is not None:
+        trace.count("cd.sweeps", int(cd[0]))
+        trace.count("cd.live_alphas", int(cd[1]))
 
 
 def _pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -216,7 +228,9 @@ def _fused_search(G: torch.Tensor, b: torch.Tensor, n_samples: int,
     sequence equals `lax.while_loop`'s. A round after `done` still launches
     the CD kernel, with alphas of +inf: every soft-threshold is 0, every
     beta stays exactly 0, each alpha stops after one sweep, and the update
-    throws that grid away. `grids` counts the rounds that were not."""
+    throws that grid away. `grids` counts the rounds that were not. With
+    tracing on, the kernels write each alpha's `stats` into one buffer,
+    summed on the device at the end over those rounds into `cd`."""
     c = G.shape[0]
     dt = G.dtype
     dev = G.device
@@ -254,13 +268,21 @@ def _fused_search(G: torch.Tensor, b: torch.Tensor, n_samples: int,
         last_supports=torch.zeros(grid_size, **i64),
         refines=torch.zeros((), **i64), done=false)
     grids = torch.zeros((), **i64)
+    # with tracing on, the kernels' per-alpha stats of every round, and
+    # which rounds had live (finite) alphas
+    stats = torch.zeros((max_rounds, grid_size, 2), dtype=torch.int32,
+                        device=dev) if trace.enabled() else None
+    live = []
 
-    for _ in range(max_rounds):
+    for r in range(max_rounds):
         keep_old = s["done"]
-        grids = grids + (~keep_old).long()
+        live.append(~keep_old)
+        grids = grids + live[-1].long()
         alphas = s["alphas"]
         a_n = (torch.where(keep_old, inf, alphas) * N).to(dt).contiguous()
-        betas = lasso_cd.cd_solve_grid(G, b, a_n, n_sweeps=n_sweeps)
+        betas = lasso_cd.cd_solve_grid(
+            G, b, a_n, n_sweeps=n_sweeps,
+            stats=None if stats is None else stats[r])
         masks = support_mask(betas)      # row-wise: row i is betas[i]'s mask
         supports = masks.sum(dim=-1)
         sup_f = supports.float()
@@ -386,7 +408,13 @@ def _fused_search(G: torch.Tensor, b: torch.Tensor, n_samples: int,
         alpha = torch.where(exact, s["cand_alpha"],
                             torch.where(s["over_found"], s["over_alpha"],
                                         _pick(s["alphas"], ni)))
-    return FusedSearch(mask=mask, alpha=alpha, support=mask.sum(), grids=grids)
+    cd = None
+    if stats is not None:
+        rounds = torch.stack(live)
+        cd = torch.stack([(stats[:, :, 0].sum(dim=1) * rounds).sum(),
+                          rounds.sum() * grid_size])
+    return FusedSearch(mask=mask, alpha=alpha, support=mask.sum(), grids=grids,
+                       cd=cd)
 
 
 def fused_search_alpha(gram: LassoGram, rank: int, rank_tol: float,
@@ -400,6 +428,7 @@ def fused_search_alpha(gram: LassoGram, rank: int, rank_tol: float,
         return np.ones(c, bool), 0.0, c
     out = _fused_search(gram.G, gram.b, gram.n_samples, rank, float(rank_tol),
                         float(alpha0), grid_size, max_rounds, n_sweeps, prefer)
+    count_sweeps(out.cd)
     return out.mask.cpu().numpy(), float(out.alpha), int(out.support)
 
 

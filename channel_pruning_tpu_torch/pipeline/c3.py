@@ -35,16 +35,22 @@ from channel_pruning_tpu_torch.graph import rewrite
 from channel_pruning_tpu_torch.graph.ir import Graph, LT
 from channel_pruning_tpu_torch.utils.config import Config
 from channel_pruning_tpu_torch.convert import params_to_torch
+from channel_pruning_tpu_torch.ops import lasso as lasso_mod
 from channel_pruning_tpu_torch.ops import lowrank
 from channel_pruning_tpu_torch.parallel import mesh as mesh_mod
 from channel_pruning_tpu_torch.pipeline import prune as prune_mod
 from channel_pruning_tpu_torch.sampling import rolling as rolling_mod
 from channel_pruning_tpu_torch.sampling import sampler as sampling
+from channel_pruning_tpu_torch.utils import trace
 
-# CP_TPU_PHASE_TIMING=1 (the JAX package's switch) prints fenced per-layer
-# timings of the pipelined pass: attribution only, since the fences
-# serialise the work the pass overlaps
+# CP_TPU_PHASE_TIMING=1 (the JAX package's switch) traces `solve_prune`
+# (utils/trace) and prints each layer's host self time and device time per
+# span of the pass at its end, without fencing the work the pass overlaps
 _PHASE_TIMING = os.environ.get("CP_TPU_PHASE_TIMING", "") == "1"
+# the spans of the pipelined pass, a layer each, in the order they run
+PASS_SPANS = ("pass.advance", "pass.target", "pass.solve", "solve.gram",
+              "solve.search", "solve.fit", "pass.to_host", "pass.drain_wait",
+              "pass.bookkeep")
 # set by chip_smoke.py: each layer's dispatch in the pipelined pass runs
 # under torch.cuda.set_sync_debug_mode("error"), so a host sync there raises
 CHECK_DISPATCH_SYNC = False
@@ -53,8 +59,11 @@ CHECK_DISPATCH_SYNC = False
 def preprocess(graph: Graph, params: Mapping[str, Mapping[str, np.ndarray]]
                ) -> tuple[Graph, dict]:
     """BN fold + ReLU split (pure graph rewrites)."""
-    g, p = rewrite.merge_bn(graph, params)
-    return rewrite.split_relu(g), p
+    with trace.span("preprocess"):
+        with trace.span("preprocess.merge_bn"):
+            g, p = rewrite.merge_bn(graph, params)
+        with trace.span("preprocess.split_relu"):
+            return rewrite.split_relu(g), p
 
 
 @dataclass
@@ -321,7 +330,7 @@ class _PipelineDegenerate(RuntimeError):
 @contextlib.contextmanager
 def _dispatch_guard(device):
     """With CHECK_DISPATCH_SYNC on the card, any host sync inside raises."""
-    if not (CHECK_DISPATCH_SYNC and device.type == "cuda") or _PHASE_TIMING:
+    if not (CHECK_DISPATCH_SYNC and device.type == "cuda"):
         yield
         return
     prev = torch.cuda.get_sync_debug_mode()
@@ -338,7 +347,8 @@ def _to_host_async(out: prune_mod.FusedLayer, device):
     alone, not for the layers queued after it."""
     if device.type != "cuda":
         return out, None
-    host = prune_mod.FusedLayer(*(v.to("cpu", non_blocking=True) for v in out))
+    host = prune_mod.FusedLayer(*(None if v is None else
+                                  v.to("cpu", non_blocking=True) for v in out))
     ev = torch.cuda.Event()
     ev.record()
     return host, ev
@@ -385,116 +395,104 @@ def _pipelined_conv_pass(g_run: Graph, p_run, dev_run, g_out, p_out,
         else:
             targets[consumer] = (top, ())
     feats_dev: dict[str, torch.Tensor] = {}
-    for t, _ in targets.values():
-        _ground_truth(feats_dev, cache, t, device)
-    N = int(np.asarray(cache.feats[targets[items[0][1]][0]]).shape[0])
-    n_sub = min(cfg.lasso.subsample_rows, max(N // 20, 1))
-    rows = np.random.default_rng(cfg.sample.seed).integers(0, N, size=n_sub)
-    solve_mesh = mesh if mesh_mod.is_sharded(mesh) and N % mesh.size == 0 \
-        else None
-    rows_d = prune_mod.split_rows(rows, N, mesh) if solve_mesh is not None \
-        else torch.as_tensor(rows, device=device)
+    with trace.span("pass.upload"):
+        for t, _ in targets.values():
+            _ground_truth(feats_dev, cache, t, device)
+        N = int(np.asarray(cache.feats[targets[items[0][1]][0]]).shape[0])
+        n_sub = min(cfg.lasso.subsample_rows, max(N // 20, 1))
+        rows = np.random.default_rng(cfg.sample.seed).integers(0, N, size=n_sub)
+        solve_mesh = mesh if mesh_mod.is_sharded(mesh) and N % mesh.size == 0 \
+            else None
+        rows_d = prune_mod.split_rows(rows, N, mesh) if solve_mesh is not None \
+            else torch.as_tensor(rows, device=device)
     pending: collections.deque = collections.deque()
 
     def drain_one():
         nonlocal g_out, p_out
         i, consumer, (out, ev), n_in, target, gate_only, t0 = pending.popleft()
-        if ev is not None:
-            ev.synchronize()       # this layer's results are on the host
-        keep = out.mask.numpy().astype(bool)
-        if keep.sum() == 0:
-            raise _PipelineDegenerate(f"{consumer}: empty fused selection "
-                                      "(magnitude fallback needed)")
-        Wfull = out.Wfull.numpy()
-        b = out.b.numpy()
-        res = prune_mod.PruneResult(
-            keep=keep, W=Wfull[:, keep], b=b, alpha=float(out.alpha),
-            rmse_before=float(out.rmse_before),
-            rmse_after=float(out.rmse_after))
-        p_run[consumer] = {"W": Wfull, "b": b}   # == _scatter_inputs(W, keep)
-        g_out, p_out = prune_mod.apply_pruning(g_out, p_out, consumer, res,
-                                               shrink_producer=not gate_only)
-        selections[consumer] = keep
-        dt = time.perf_counter() - t0
-        kind = "gate" if gate_only else "prune"
-        reports.append(LayerReport(
-            conv=consumer, target=target, kept=int(keep.sum()),
-            total=int(n_in), alpha=res.alpha, rmse_before=res.rmse_before,
-            rmse_after=res.rmse_after, seconds=dt, kind=kind,
-            grids=int(out.grids)))
-        if verbose:
-            print(f"[{kind}] {consumer}: keep {int(keep.sum())}/{n_in} "
-                  f"rMSE {res.rmse_before:.4f}->{res.rmse_after:.4f} "
-                  f"({dt:.2f}s pipelined)", flush=True)
-        if checkpoint is not None:
-            checkpoint.maybe_save(i, {"p_run": p_run, "g_out": g_out,
-                                      "p_out": p_out,
-                                      "selections": selections,
-                                      "reports": reports,
-                                      "frontier_fallbacks": frontier_fallbacks})
+        with trace.span("pass.drain_wait", consumer):
+            if ev is not None:
+                ev.synchronize()   # this layer's results are on the host
+        with trace.span("pass.bookkeep", consumer):
+            keep = out.mask.numpy().astype(bool)
+            if keep.sum() == 0:
+                raise _PipelineDegenerate(f"{consumer}: empty fused selection "
+                                          "(magnitude fallback needed)")
+            Wfull = out.Wfull.numpy()
+            b = out.b.numpy()
+            lasso_mod.count_sweeps(out.cd)
+            res = prune_mod.PruneResult(
+                keep=keep, W=Wfull[:, keep], b=b, alpha=float(out.alpha),
+                rmse_before=float(out.rmse_before),
+                rmse_after=float(out.rmse_after))
+            p_run[consumer] = {"W": Wfull, "b": b}  # == _scatter_inputs(W, keep)
+            g_out, p_out = prune_mod.apply_pruning(
+                g_out, p_out, consumer, res, shrink_producer=not gate_only)
+            selections[consumer] = keep
+            dt = time.perf_counter() - t0
+            kind = "gate" if gate_only else "prune"
+            reports.append(LayerReport(
+                conv=consumer, target=target, kept=int(keep.sum()),
+                total=int(n_in), alpha=res.alpha, rmse_before=res.rmse_before,
+                rmse_after=res.rmse_after, seconds=dt, kind=kind,
+                grids=int(out.grids)))
+            if verbose:
+                print(f"[{kind}] {consumer}: keep {int(keep.sum())}/{n_in} "
+                      f"rMSE {res.rmse_before:.4f}->{res.rmse_after:.4f} "
+                      f"({dt:.2f}s pipelined)", flush=True)
+            if checkpoint is not None:
+                checkpoint.maybe_save(i, {"p_run": p_run, "g_out": g_out,
+                                          "p_out": p_out,
+                                          "selections": selections,
+                                          "reports": reports,
+                                          "frontier_fallbacks":
+                                              frontier_fallbacks})
 
-    def fence():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        return time.perf_counter()
-
-    diag: list[tuple[float, float, float]] = []
     for i, consumer, bottom, target, gate_only in items:
         t0 = time.perf_counter()
         n_out, n_in = p_run[consumer]["W"].shape[:2]
         with _dispatch_guard(device):
-            try:
-                roll.advance_to(dev_run, bottom)
-                X = roll.patches_at(cache.plan, consumer)
-            except rolling_mod.FrontierError as exc:
-                raise _PipelineDegenerate(f"{consumer}: frontier fallback "
-                                          f"needed ({exc})") from exc
+            with trace.span("pass.advance", consumer):
+                try:
+                    roll.advance_to(dev_run, bottom)
+                    X = roll.patches_at(cache.plan, consumer)
+                except rolling_mod.FrontierError as exc:
+                    raise _PipelineDegenerate(f"{consumer}: frontier fallback "
+                                              f"needed ({exc})") from exc
             # rows were drawn against the first layer's row count
             assert X.shape[0] == N, (consumer, X.shape[0], N)
-            if _PHASE_TIMING:
-                t_adv = fence()
-            W2d = dev_run[consumer]["W"]
-            b2d = dev_run[consumer].get("b")
-            if b2d is None:
-                b2d = torch.zeros(n_out, dtype=torch.float32, device=device)
-            t, others = targets[consumer]
-            # the sequential path's expression order: bit-identical targets
-            Yd = feats_dev[t] - b2d
-            try:
-                for o in others:
-                    Yd = Yd - roll.features_at(dev_run, cache.plan, o,
-                                               device=True)
-            except rolling_mod.FrontierError as exc:
-                raise _PipelineDegenerate(f"{consumer}: residual features "
-                                          f"fallback needed ({exc})") from exc
-            if _PHASE_TIMING:
-                t_tgt = fence()
-            out = prune_mod._fused_layer_solve(
-                X.float(), W2d, Yd, rows_d, target, float(cfg.dic.rank_tol),
-                float(cfg.solve.alpha), cfg.lasso.grid_size,
-                cfg.lasso.max_rounds, cfg.lasso.n_sweeps, cfg.solve.band,
-                float(cfg.solve.ls_ridge), mesh=solve_mesh)
-            # the device-to-device running update: the next advance needs
-            # no host round trip
-            dev_run[consumer] = {"W": out.Wfull, "b": out.b}
-            host = _to_host_async(out, device)
-        if _PHASE_TIMING:
-            t_end = fence()
-            diag.append((t_adv - t0, t_tgt - t_adv, t_end - t_tgt))
-            print(f"[fenced-diag] {consumer}: advance+gather "
-                  f"{diag[-1][0]:.2f}s target-build {diag[-1][1]:.2f}s "
-                  f"fused-solve {diag[-1][2]:.2f}s", flush=True)
+            with trace.span("pass.target", consumer):
+                W2d = dev_run[consumer]["W"]
+                b2d = dev_run[consumer].get("b")
+                if b2d is None:
+                    b2d = torch.zeros(n_out, dtype=torch.float32, device=device)
+                t, others = targets[consumer]
+                # the sequential path's expression order: bit-identical
+                Yd = feats_dev[t] - b2d
+                try:
+                    for o in others:
+                        Yd = Yd - roll.features_at(dev_run, cache.plan, o,
+                                                   device=True)
+                except rolling_mod.FrontierError as exc:
+                    raise _PipelineDegenerate(f"{consumer}: residual features "
+                                              f"fallback needed ({exc})") from exc
+            with trace.span("pass.solve", consumer):
+                out = prune_mod._fused_layer_solve(
+                    X.float(), W2d, Yd, rows_d, target,
+                    float(cfg.dic.rank_tol), float(cfg.solve.alpha),
+                    cfg.lasso.grid_size, cfg.lasso.max_rounds,
+                    cfg.lasso.n_sweeps, cfg.solve.band,
+                    float(cfg.solve.ls_ridge), mesh=solve_mesh)
+                # the device-to-device running update: the next advance
+                # needs no host round trip
+                dev_run[consumer] = {"W": out.Wfull, "b": out.b}
+            with trace.span("pass.to_host", consumer):
+                host = _to_host_async(out, device)
         pending.append((i, consumer, host, n_in, target, gate_only, t0))
         while len(pending) > 1:
             drain_one()
     while pending:
         drain_one()
-    if _PHASE_TIMING and diag:
-        tot = [sum(d[k] for d in diag) for k in range(3)]
-        print(f"[fenced-diag] totals over {len(diag)} layers: "
-              f"advance+gather {tot[0]:.2f}s target-build {tot[1]:.2f}s "
-              f"fused-solve {tot[2]:.2f}s (fenced run: the pass overlaps "
-              f"these with the host's bookkeeping)", flush=True)
     return g_out, p_out
 
 
@@ -533,15 +531,33 @@ def solve_prune(graph: Graph, params: Mapping[str, Mapping[str, np.ndarray]],
 
     A `mesh` (parallel/mesh) of more than one shard, whose lead takes the
     place of `device`, splits the frontier's images and the solvers' row
-    reductions over its shards; the selections are the one-device ones."""
+    reductions over its shards; the selections are the one-device ones.
+
+    The solve runs in the span `pass` (utils/trace); with
+    CP_TPU_PHASE_TIMING=1 it turns tracing on if it is off and prints
+    `PASS_SPANS`' host self and device seconds a layer at the end (the
+    tracer's clock anchors synchronize at the solve's start and end, and
+    nothing inside it)."""
+    owns = _PHASE_TIMING and not trace.enabled()
+    if owns:
+        trace.enable(_lead(device, mesh)[0])
+    first = len(trace.records()) if _PHASE_TIMING and not owns else 0
     try:
-        return _solve_prune(graph, params, cache, cfg, channel_targets,
-                            input_targets, residual_compensate, device,
-                            checkpoint, verbose, _no_pipeline, mesh)
+        with trace.span("pass"):
+            res = _solve_prune(graph, params, cache, cfg, channel_targets,
+                               input_targets, residual_compensate, device,
+                               checkpoint, verbose, _no_pipeline, mesh)
     except BaseException:
         if checkpoint is not None:
             checkpoint.wait()
         raise
+    finally:
+        if owns:
+            trace.disable()
+    if _PHASE_TIMING:
+        print("\n".join(trace.layer_table(trace.records()[first:], PASS_SPANS,
+                                          "phase-timing")), flush=True)
+    return res
 
 
 def _lead(device, mesh) -> tuple[torch.device, object]:
@@ -585,7 +601,8 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
                               device)
     feats_dev: dict[str, torch.Tensor] = {}   # ground truth, uploaded once
     cdt = _replay_dtype(cfg)       # the replays' convs; fitfc's capture f32
-    roll = _maybe_rolling(g_run, cache, device, cdt, mesh=mesh)
+    with trace.span("pass.upload"):        # the frontier's images
+        roll = _maybe_rolling(g_run, cache, device, cdt, mesh=mesh)
 
     # the fused single-task solve cannot serve a 1x1 consumer under group
     # lasso (select_and_reconstruct routes those to the group path), nor

@@ -22,6 +22,7 @@ from channel_pruning_tpu_torch.graph import rewrite
 from channel_pruning_tpu_torch.graph.ir import Graph, LT
 from channel_pruning_tpu_torch.ops import lasso, lstsq
 from channel_pruning_tpu_torch.parallel import mesh as mesh_mod
+from channel_pruning_tpu_torch.utils import trace
 
 _CHANNEL_PRESERVING = (LT.RELU, LT.POOL, LT.DROPOUT, LT.BN, LT.SCALE)
 
@@ -74,6 +75,7 @@ class FusedLayer(NamedTuple):
     rmse_before: torch.Tensor   # ()
     rmse_after: torch.Tensor    # ()
     grids: torch.Tensor         # () the CD grids the search solved
+    cd: torch.Tensor | None = None   # the search's `FusedSearch.cd`
 
 
 def _fused_layer_solve(Xd: torch.Tensor, W2d: torch.Tensor, Yd: torch.Tensor,
@@ -102,22 +104,27 @@ def _fused_layer_solve(Xd: torch.Tensor, W2d: torch.Tensor, Yd: torch.Tensor,
         return _fused_layer_solve_sharded(
             Xd, W2d, Yd, rows, rank, rank_tol, alpha0, grid_size, max_rounds,
             n_sweeps, prefer, ridge, mesh)
-    rmse_before = _device_rel_error(Xd, W2d, 0.0, Yd)
-    Xs, Ys = Xd.index_select(0, rows), Yd.index_select(0, rows)
-    Z = lasso.build_channel_response(Xs, W2d)
-    gram = lasso.lasso_gram(Z, Ys.reshape(-1))
-    found = lasso._fused_search(gram.G, gram.b, gram.n_samples, rank,
-                                rank_tol, alpha0, grid_size, max_rounds,
-                                n_sweeps, prefer)
-    # mask[:, None].expand: repeat_interleave would read its size on the host
-    colmask = found.mask[:, None].expand(c, kh * kw).reshape(-1).to(Xd.dtype)
-    W, b = lstsq.fit_linear(Xd.reshape(N, c * kh * kw) * colmask, Yd,
-                            ridge=ridge)
-    Wfull = W.reshape(n, c, kh, kw)
+    with trace.span("solve.gram"):
+        rmse_before = _device_rel_error(Xd, W2d, 0.0, Yd)
+        Xs, Ys = Xd.index_select(0, rows), Yd.index_select(0, rows)
+        Z = lasso.build_channel_response(Xs, W2d)
+        gram = lasso.lasso_gram(Z, Ys.reshape(-1))
+    with trace.span("solve.search"):
+        found = lasso._fused_search(gram.G, gram.b, gram.n_samples, rank,
+                                    rank_tol, alpha0, grid_size, max_rounds,
+                                    n_sweeps, prefer)
+    with trace.span("solve.fit"):
+        # mask[:, None].expand: repeat_interleave would read its size on
+        # the host
+        colmask = found.mask[:, None].expand(c, kh * kw).reshape(-1) \
+            .to(Xd.dtype)
+        W, b = lstsq.fit_linear(Xd.reshape(N, c * kh * kw) * colmask, Yd,
+                                ridge=ridge)
+        Wfull = W.reshape(n, c, kh, kw)
+        rmse_after = _device_rel_error(Xd, Wfull, b, Yd)
     return FusedLayer(mask=found.mask, alpha=found.alpha, Wfull=Wfull, b=b,
-                      rmse_before=rmse_before,
-                      rmse_after=_device_rel_error(Xd, Wfull, b, Yd),
-                      grids=found.grids)
+                      rmse_before=rmse_before, rmse_after=rmse_after,
+                      grids=found.grids, cd=found.cd)
 
 
 def _fused_layer_solve_sharded(Xd, W2d, Yd, rows, rank, rank_tol, alpha0,
@@ -131,22 +138,26 @@ def _fused_layer_solve_sharded(Xd, W2d, Yd, rows, rank, rank_tol, alpha0,
     n = W2d.shape[0]
     Xs, Ys = mesh_mod.shard_rows(Xd, mesh), mesh_mod.shard_rows(Yd, mesh)
     W2s = [W2d.to(d) for d in mesh.devices]
-    rmse_before = _sharded_rel_error(Xs, W2d, 0.0, Ys, mesh)
-    Z = [lasso.build_channel_response(X.index_select(0, r), W)
-         for X, r, W in zip(Xs, rows, W2s)]
-    y = [Y.index_select(0, r).reshape(-1) for Y, r in zip(Ys, rows)]
-    gram = sharded_lasso_gram(Z, y, mesh)
-    found = lasso._fused_search(gram.G, gram.b, gram.n_samples, rank,
-                                rank_tol, alpha0, grid_size, max_rounds,
-                                n_sweeps, prefer)
-    colmask = found.mask[:, None].expand(c, kh * kw).reshape(-1).to(Xd.dtype)
-    W, b = sharded_lstsq([X.reshape(X.shape[0], -1) * colmask.to(X.device)
-                          for X in Xs], Ys, mesh, ridge=ridge)
-    Wfull = W.reshape(n, c, kh, kw)
+    with trace.span("solve.gram"):
+        rmse_before = _sharded_rel_error(Xs, W2d, 0.0, Ys, mesh)
+        Z = [lasso.build_channel_response(X.index_select(0, r), W)
+             for X, r, W in zip(Xs, rows, W2s)]
+        y = [Y.index_select(0, r).reshape(-1) for Y, r in zip(Ys, rows)]
+        gram = sharded_lasso_gram(Z, y, mesh)
+    with trace.span("solve.search"):
+        found = lasso._fused_search(gram.G, gram.b, gram.n_samples, rank,
+                                    rank_tol, alpha0, grid_size, max_rounds,
+                                    n_sweeps, prefer)
+    with trace.span("solve.fit"):
+        colmask = found.mask[:, None].expand(c, kh * kw).reshape(-1) \
+            .to(Xd.dtype)
+        W, b = sharded_lstsq([X.reshape(X.shape[0], -1) * colmask.to(X.device)
+                              for X in Xs], Ys, mesh, ridge=ridge)
+        Wfull = W.reshape(n, c, kh, kw)
+        rmse_after = _sharded_rel_error(Xs, Wfull, b, Ys, mesh)
     return FusedLayer(mask=found.mask, alpha=found.alpha, Wfull=Wfull, b=b,
-                      rmse_before=rmse_before,
-                      rmse_after=_sharded_rel_error(Xs, Wfull, b, Ys, mesh),
-                      grids=found.grids)
+                      rmse_before=rmse_before, rmse_after=rmse_after,
+                      grids=found.grids, cd=found.cd)
 
 
 def producer_conv(graph: Graph, tensor: str, before: str | None = None) -> str | None:
@@ -242,6 +253,7 @@ def select_and_reconstruct(X: torch.Tensor, W2: np.ndarray, Y: torch.Tensor,
             float(rank_tol), float(alpha0), grid_size, max_rounds, n_sweeps,
             prefer, float(ridge), mesh=mesh if on_mesh else None)
         keep = out.mask.cpu().numpy()[:c]
+        lasso.count_sweeps(out.cd)
         if keep.sum() > 0:
             return PruneResult(
                 keep=keep, W=out.Wfull.cpu().numpy()[:n_out, :c][:, keep],

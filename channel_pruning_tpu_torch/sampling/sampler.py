@@ -33,6 +33,7 @@ from channel_pruning_tpu_torch.sampling.inputs import (JAX_SPEC_KEY, SPEC_KEY,
                                                        SyntheticInputs,
                                                        device_chunk,
                                                        device_images)
+from channel_pruning_tpu_torch.utils import trace
 
 
 def make_point_plan(shapes: Mapping[str, tuple[int, ...]], tensors: Sequence[str],
@@ -125,7 +126,7 @@ def sample_features(graph: Graph, params, inputs,
                     tensors: Sequence[str], *, device,
                     chunk_batches: int = 25,
                     compute_dtype: str | None = None,
-                    mesh=None) -> dict[str, np.ndarray]:
+                    mesh=None, phase: str = "sample") -> dict[str, np.ndarray]:
     """Ground-truth response sampling: {tensor: (n_batches*P*bs, C)} (dense
     (n_images, D) for non-spatial tensors). inputs: (n_batches, bs, C, H, W)
     host array or SyntheticInputs; params on `device`. `compute_dtype`
@@ -133,7 +134,11 @@ def sample_features(graph: Graph, params, inputs,
     replays only: the freeze's ground truth stays f32. Under a `mesh` of
     more than one shard (`device` its lead) each chunk's images are split
     over the shards, each uploads and runs only its own, and the rows come
-    back in the one-device order."""
+    back in the one-device order. Each chunk's upload and forward, and the
+    copy of the samples to the host, are the spans `<phase>.upload`,
+    `<phase>.forward` and `<phase>.to_host` (utils/trace)."""
+    up, fwd, to_host = (f"{phase}.upload", f"{phase}.forward",
+                        f"{phase}.to_host")
     tensors = tuple(tensors)
     input_name = graph.inputs[0].name
     sub = graph.ancestors_subgraph(tensors)     # skip layers past the captures
@@ -153,15 +158,19 @@ def sample_features(graph: Graph, params, inputs,
             return {t: tf_for(t) for t in tensors}
 
         for lo, hi in _chunk_iter(inputs.shape[0], chunk_batches):
-            caps = _sharded_captures(sub, by_dev, inputs, lo, hi, mesh,
-                                     make_tf, compute_dtype)
+            with trace.span(fwd):             # each shard uploads its own
+                caps = _sharded_captures(sub, by_dev, inputs, lo, hi, mesh,
+                                         make_tf, compute_dtype)
             for t in tensors:
                 v = caps[t]
                 outs[t].append(image_rows(v, bs) if v.dim() > 2 else v)
-        return {t: torch.cat(v, dim=0).cpu().numpy() for t, v in outs.items()}
+        with trace.span(to_host):
+            return {t: torch.cat(v, dim=0).cpu().numpy()
+                    for t, v in outs.items()}
     for lo, hi in _chunk_iter(inputs.shape[0], chunk_batches):
-        x = device_chunk(inputs, lo, hi, device)
-        pts = {t: _plan_slice(plan, t, lo, hi, device) for t in tensors}
+        with trace.span(up):
+            x = device_chunk(inputs, lo, hi, device)
+            pts = {t: _plan_slice(plan, t, lo, hi, device) for t in tensors}
 
         def make_tf(t):
             def tf(v):
@@ -171,12 +180,15 @@ def sample_features(graph: Graph, params, inputs,
                 return gather_channels_grouped(v, ys, xs)
             return tf
 
-        _, caps = run_graph(sub, params, {input_name: x},
-                            capture_transforms={t: make_tf(t) for t in tensors},
-                            compute_dtype=_dtype_of(compute_dtype))
+        with trace.span(fwd):
+            _, caps = run_graph(sub, params, {input_name: x},
+                                capture_transforms={t: make_tf(t)
+                                                    for t in tensors},
+                                compute_dtype=_dtype_of(compute_dtype))
         for t in tensors:
             outs[t].append(caps[t])
-    return {t: torch.cat(v, dim=0).cpu().numpy() for t, v in outs.items()}
+    with trace.span(to_host):
+        return {t: torch.cat(v, dim=0).cpu().numpy() for t, v in outs.items()}
 
 
 def sample_patches(graph: Graph, params, inputs, conv: str,
@@ -359,17 +371,20 @@ def freeze(graph: Graph, params, inputs, *, device,
     (rewrite.split_relu) so conv outputs are addressable. Under a `mesh`
     (`device` its lead, `params` there) the calibration images are split
     over its shards (`sample_features`); one parameter copy is made per
-    distinct device."""
-    chunk_batches = clamp_chunk_for_hbm(graph, int(inputs.shape[1]),
-                                        chunk_batches)
-    if tensors is None:
-        tensors = freeze_tensor_set(graph, include_fc=include_fc)
-    shapes = shapes_of(graph, batch=inputs.shape[1])
-    plan = make_point_plan(shapes, tensors, inputs.shape[0], n_points, seed,
-                           share_key=share_key)
-    feats = sample_features(graph, params, inputs, plan, tensors,
-                            device=device, chunk_batches=chunk_batches,
-                            mesh=mesh)
+    distinct device. The whole is the span `freeze` (utils/trace), with
+    `sample_features`' spans `freeze.upload`, `freeze.forward` and
+    `freeze.to_host` inside."""
+    with trace.span("freeze"):
+        chunk_batches = clamp_chunk_for_hbm(graph, int(inputs.shape[1]),
+                                            chunk_batches)
+        if tensors is None:
+            tensors = freeze_tensor_set(graph, include_fc=include_fc)
+        shapes = shapes_of(graph, batch=inputs.shape[1])
+        plan = make_point_plan(shapes, tensors, inputs.shape[0], n_points,
+                               seed, share_key=share_key)
+        feats = sample_features(graph, params, inputs, plan, tensors,
+                                device=device, chunk_batches=chunk_batches,
+                                mesh=mesh, phase="freeze")
     if not isinstance(inputs, SyntheticInputs):
         inputs = np.asarray(inputs)
     return FrozenCache(inputs=inputs, plan=plan, feats=feats, labels=labels)

@@ -404,3 +404,54 @@ def test_bf16_conv_restores_the_tf32_flags(card):
     with pytest.raises(RuntimeError):
         forward._conv2d(x, w[:, :5], None, geo, torch.bfloat16)
     assert _tf32_flags() == (False, False)
+
+
+@pytest.mark.cuda
+def test_traced_pass_on_the_card(card, monkeypatch):
+    """The tiny VGG's pipelined pass traced on the card (utils/trace), each
+    layer's dispatch under the sync check: every span's device extent
+    starts after its host start (events put on the host clock through the
+    anchor), the pass spans follow one another on the stream, the sweep
+    counters cover every live alpha the searches solved, and the answer
+    equals an untraced run's."""
+    from channel_pruning_tpu_torch.convert import params_to_torch
+    from channel_pruning_tpu_torch.models.vgg import build_tiny_vgg
+    from channel_pruning_tpu_torch.pipeline import c3
+    from channel_pruning_tpu_torch.sampling import sampler
+    from channel_pruning_tpu_torch.utils import trace
+    from channel_pruning_tpu_torch.utils.config import default_config
+
+    monkeypatch.setattr(c3, "CHECK_DISPATCH_SYNC", True)
+    g, p = c3.preprocess(*build_tiny_vgg(batch=4, image_size=16))
+    inputs = np.random.default_rng(7).normal(0, 1, (8, 4, 3, 16, 16)) \
+        .astype(np.float32)
+    cache = sampler.freeze(g, params_to_torch(p, card), inputs, device=card,
+                           n_points=8, seed=0, chunk_batches=4)
+    cfg = default_config().replace_nested("solve.band", "bottom")
+    targets = {"conv1_1": 5, "conv1_2": 6, "conv2_1": 8}
+
+    def solve():
+        return c3.solve_prune(g, p, cache, cfg, channel_targets=targets,
+                              device=card, verbose=False)
+
+    base = solve()
+    trace.enable(card)
+    try:
+        res = solve()
+    finally:
+        trace.disable()
+    spans = trace.records()
+    assert res.pipelined and spans
+    assert all(s.dev_start is not None and s.dev_start >= s.host_start - 1e-4
+               for s in spans)
+    steps = sorted((s.dev_start, s.dev_end) for s in spans
+                   if s.name.startswith("pass."))
+    assert all(b[0] >= a[1] - 1e-6 for a, b in zip(steps, steps[1:]))
+    counts = trace.counters()
+    assert counts["cd.k1_launches"] > 0
+    assert counts["cd.live_alphas"] == \
+        cfg.lasso.grid_size * sum(r.grids for r in res.reports)
+    assert counts["cd.live_alphas"] <= counts["cd.sweeps"]
+    for name in base.selections:
+        np.testing.assert_array_equal(res.selections[name],
+                                      base.selections[name])

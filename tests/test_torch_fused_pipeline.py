@@ -3,7 +3,7 @@ package and against the port's sequential path: `_fused_layer_solve`
 through `select_and_reconstruct(fused=True)`, `pad_to` inertness, the
 pipelined chain pass (tiny VGG) and DAG pass (tiny ResNet: gates,
 residual compensation), the restart after a degenerate layer, a crash and
-resume inside the pipelined pass, and the fenced phase timing. Each package
+resume inside the pipelined pass, and the phase timing. Each package
 solves a graph built by its own builders from the same seed; the JAX side
 runs as its suite runs on the CPU (XLA CD), the port's on the plain CD."""
 import numpy as np
@@ -285,21 +285,38 @@ def test_pipelined_checkpoint_resume(vgg, tmp_path, monkeypatch):
 
 
 def test_pipelined_fenced_phase_timing(vgg, monkeypatch, capsys):
-    """tests/test_pipeline.py::test_pipelined_pass_fenced_diag: with
-    CP_TPU_PHASE_TIMING on, per-layer and total fenced lines print and the
+    """With CP_TPU_PHASE_TIMING on, the solve traces itself (utils/trace)
+    and prints a line a solved layer and a line of totals, each with the
+    host self time and device time of every span of the pass; it fences
+    nothing (a synchronize raises), turns tracing off again, and the
     selections do not change."""
+    from channel_pruning_tpu_torch.utils import trace
+
     (g, _), params, cfg, _, cache = vgg
     targets = {"conv1_1": 5, "conv1_2": 6}
     base = c3.solve_prune(g, params, cache, cfg, channel_targets=targets,
                           device="cpu", verbose=False)
+    capsys.readouterr()
+
+    def fence(*a, **kw):
+        raise AssertionError("a synchronize() fence in the timed pass")
+
     monkeypatch.setattr(c3, "_PHASE_TIMING", True)
-    fenced = c3.solve_prune(g, params, cache, cfg, channel_targets=targets,
-                            device="cpu", verbose=False)
-    out = capsys.readouterr().out
-    assert "[fenced-diag] totals over 2 layers" in out
-    assert out.count("fused-solve") == 3
+    monkeypatch.setattr(torch.cuda, "synchronize", fence)
+    timed = c3.solve_prune(g, params, cache, cfg, channel_targets=targets,
+                           device="cpu", verbose=False)
+    lines = [l for l in capsys.readouterr().out.splitlines()
+             if l.startswith("[phase-timing]")]
+    assert [l.split(":")[0] for l in lines] == [
+        "[phase-timing] conv1_2", "[phase-timing] conv2_1",
+        "[phase-timing] totals over 2 layers"]
+    for line in lines:
+        for name in c3.PASS_SPANS:
+            assert f" {name} host " in line, (name, line)
+        assert "dev -" in line           # no card: no device time
+    assert not trace.enabled()
     for name in base.selections:
-        np.testing.assert_array_equal(fenced.selections[name],
+        np.testing.assert_array_equal(timed.selections[name],
                                       base.selections[name])
 
 

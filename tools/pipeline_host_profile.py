@@ -7,12 +7,13 @@
 For each model (VGG-16 5x, ResNet-50 2x, through the port's CLI with its
 defaults) the pipelined pass and the sequential pass
 (`--set solve.fused_search=False`) each run once to warm up and once under
-torch.profiler with CPU and CUDA activities. The host regions of the
-solve (frontier advance, patch gather, the fused layer solve and its
-search, the host's reads and bookkeeping) are labelled with
-record_function; the lines give each region's host seconds and calls,
-the CUDA runtime calls (launches, copies, syncs) and the kernels'
-device seconds. Work directories go under work/ (git-ignored).
+torch.profiler with CPU and CUDA activities and the port's tracing on
+(utils/trace), so the profiler's ranges are the program's own spans
+(`freeze.upload`, `pass.advance`, `solve.search`, `pass.drain_wait`, ...);
+the lines give each span's host seconds and calls, the CUDA runtime calls
+(launches, copies, syncs), the kernels' device seconds and the program's
+counters (CD launches and sweeps). Work directories go under work/
+(git-ignored).
 `--count-ops` instead counts the torch ops the fused alpha search
 dispatches per round (the CD grid stubbed out), on the CPU. Imports only
 the port.
@@ -20,7 +21,6 @@ the port.
 from __future__ import annotations
 
 import argparse
-import functools
 import shutil
 import sys
 import time
@@ -28,44 +28,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
-
-
-def _label(obj, name: str, tag: str) -> None:
-    """Wrap obj.name in a profiler range called `tag`."""
-    from torch.profiler import record_function
-
-    fn = getattr(obj, name)
-
-    @functools.wraps(fn)
-    def wrapped(*a, **kw):
-        with record_function(tag):
-            return fn(*a, **kw)
-
-    setattr(obj, name, wrapped)
-
-
-def _instrument() -> None:
-    import torch
-
-    from channel_pruning_tpu_torch.ops import lasso, lstsq
-    from channel_pruning_tpu_torch.pipeline import c3, checkpoint
-    from channel_pruning_tpu_torch.pipeline import prune
-    from channel_pruning_tpu_torch.sampling import rolling
-
-    for cls in (rolling.RollingReplay, rolling.RollingReplayDAG):
-        _label(cls, "advance_to", "host:advance")
-        _label(cls, "patches_at", "host:patches")
-        _label(cls, "features_at", "host:features")
-    _label(prune, "_fused_layer_solve", "host:fused_layer_solve")
-    _label(prune, "select_and_reconstruct", "host:select_and_reconstruct")
-    _label(prune, "apply_pruning", "host:apply_pruning")
-    _label(lasso, "_fused_search", "host:fused_search")
-    _label(lasso, "search_alpha", "host:search_alpha")
-    _label(lstsq, "fit_linear", "host:fit_linear")
-    _label(c3, "_maybe_rolling", "host:frontier_setup")
-    _label(c3, "_ground_truth", "host:ground_truth")
-    _label(checkpoint.SolveCheckpoint, "maybe_save", "host:checkpoint")
-    _label(torch.cuda.Event, "synchronize", "host:drain_wait")
 
 
 def count_search_ops() -> None:
@@ -109,6 +71,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from channel_pruning_tpu_torch import cli
+    from channel_pruning_tpu_torch.utils import trace
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--models", default="vgg16,resnet50")
@@ -121,7 +84,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs an NVIDIA card", file=sys.stderr)
         return 2
-    _instrument()
     speeds = {"vgg16": "5.0", "resnet50": "2.0"}
     for model in args.models.split(","):
         for name, extra in (("pipelined", []),
@@ -132,30 +94,34 @@ def main() -> int:
             shutil.rmtree(work, ignore_errors=True)
             cli.main(argv)                                   # warm-up
             shutil.rmtree(work, ignore_errors=True)
+            trace.enable("cuda")
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 res = cli.main(argv)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
+            trace.disable()
+            spans = {s.name for s in trace.records()}
             events = prof.key_averages()
-            # device-side kernels and copies; the labelled ranges also show
+            # device-side kernels and copies; the spans' ranges also show
             # on the device timeline and are not work
             kernels = [e for e in events if e.device_type.name == "CUDA"
                        and e.self_device_time_total > 0
-                       and not e.key.startswith("host:")]
+                       and e.key not in spans]
             busy = sum(e.self_device_time_total for e in kernels) / 1e6
             print(f"[host] {model} {name}: profiled wall {wall:.2f}s, solve "
                   f"{res.wall['solve']:.2f}s; device busy {busy:.3f}s")
             rows = sorted(events, key=lambda e: -e.cpu_time_total)
             for e in rows:
-                if e.device_type.name == "CPU" and e.key.startswith((
-                        "host:", "cudaLaunchKernel",
-                        "cudaMemcpyAsync", "cudaStreamSynchronize",
-                        "cudaEventSynchronize", "cudaDeviceSynchronize")):
+                if e.device_type.name == "CPU" and (e.key in spans or e.key in (
+                        "cudaLaunchKernel", "cudaMemcpyAsync",
+                        "cudaStreamSynchronize", "cudaEventSynchronize",
+                        "cudaDeviceSynchronize")):
                     print(f"[host] {model} {name} {e.key:28s} calls "
                           f"{e.count:7d} host {e.cpu_time_total / 1e6:7.3f}s "
                           f"(self {e.self_cpu_time_total / 1e6:7.3f}s)")
+            print(f"[host] {model} {name} counters {trace.counters()}")
             for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
                 print(f"[host] {model} {name} device {e.self_device_time_total / 1e6:7.3f}s "
                       f"{e.count:6d}x {e.key[:80]}")
