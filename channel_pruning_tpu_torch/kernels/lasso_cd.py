@@ -9,8 +9,11 @@ Two kernels in csrc/lasso_cd.cu, one block per alpha, with one contract:
 
 Both run each alpha's coordinate chain in a warp, skip runs of zero-delta
 coordinates exactly (a ballot over a window of 32 coordinates finds the
-first that moves), and keep q in registers, spread over ceil(c/256) warps
-that run the same chain. Their contract is the same, so `cd_solve_grid_plain` is the plain version of
+first that moves), and keep q in registers, spread over warps that run
+the same chain (K1 1-16 warps of 1-2 chunks, K2 8-16 warps of 8-32). The
+soft threshold's division is an f64 product with the diagonal's
+reciprocal, which rounds to the same float as the division. Their
+contract is the same, so `cd_solve_grid_plain` is the plain version of
 both, and both match it bit for bit. The source is built with nvcc for sm_90a on first use into
 `_build/` and bound through ctypes. `cd_solve_grid` launches K1 or K2 for
 CUDA tensors and takes the plain version only for tensors on the CPU; a
@@ -30,7 +33,7 @@ from pathlib import Path
 import torch
 
 MAX_C = 1024          # K1 (the JAX dispatch's threshold); larger c is K2's
-MAX_C_STREAM = 8192   # K2: 32 warps of 8 chunks, the 1024 threads of a block
+MAX_C_STREAM = 8192   # K2: 8 warps of 32 chunks
 LAUNCHES = 0
 LAUNCHES_STREAM = 0
 
@@ -128,13 +131,8 @@ def compile_source(source: Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(so))
 
 
-def build() -> ctypes.CDLL:
-    """Compile csrc/lasso_cd.cu, both kernels (once per source hash), and
-    load it."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = compile_source(SOURCE)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of a build's C entry points."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name in ("cp_lasso_cd_grid", "cp_lasso_cd_grid_stream"):
         fn = getattr(lib, name)
@@ -142,8 +140,16 @@ def build() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.cp_cuda_error_string.argtypes = [ctypes.c_int]
     lib.cp_cuda_error_string.restype = ctypes.c_char_p
-    _lib = lib
     return lib
+
+
+def build() -> ctypes.CDLL:
+    """Compile csrc/lasso_cd.cu, both kernels (once per source hash), and
+    load it."""
+    global _lib
+    if _lib is None:
+        _lib = bind(compile_source(SOURCE))
+    return _lib
 
 
 def _check_inputs(G: torch.Tensor, b: torch.Tensor, alphas_n: torch.Tensor,
@@ -182,10 +188,10 @@ def _launch(entry: str, G: torch.Tensor, b: torch.Tensor,
             alphas_n: torch.Tensor, n_sweeps: int, tol: float,
             stats: torch.Tensor | None = None) -> torch.Tensor:
     """Launch one of the C entry points on the current stream; raises if the
-    launch is refused. The kernels copy rows with TMA, in 16-byte units
-    from 16-byte aligned addresses: a width that is not a multiple of 4 is
-    padded with inert zero rows and columns (a zero diagonal never moves).
-    Nothing here reads the card on the host."""
+    launch is refused. The kernels copy the diagonal blocks in 16-byte
+    units from 16-byte aligned addresses: a width that is not a multiple
+    of 4 is padded with inert zero rows and columns (a zero diagonal never
+    moves). Nothing here reads the card on the host."""
     c, A = G.shape[0], alphas_n.shape[0]
     if c % 4 or G.data_ptr() % 16 or b.data_ptr() % 16:
         cp = c + (-c % 4)
@@ -212,8 +218,7 @@ def _checked(G, b, alphas_n, n_sweeps, stats, max_c: int) -> int:
     if c > max_c:
         raise ValueError(
             f"c={c} > {max_c}: K1 takes c <= {MAX_C}; K2 takes "
-            f"c <= {MAX_C_STREAM}: 32 warps of 8 chunks, the 1024 threads "
-            "a block may have")
+            f"c <= {MAX_C_STREAM} (8 warps of 32 chunks)")
     _check_stats(stats, G, alphas_n.shape[0])
     return c
 

@@ -195,17 +195,19 @@ class FusedSearch(NamedTuple):
     alpha: torch.Tensor     # () float32
     support: torch.Tensor   # () int64, mask.sum()
     grids: torch.Tensor     # () int64, the grids the search solved
-    # (2,) int64 with tracing on (utils/trace), else None: the sweeps K1/K2
-    # ran over the alphas that were not +inf, and those alphas
+    # (3,) int64 with tracing on (utils/trace), else None: the sweeps K1/K2
+    # ran over the alphas that were not +inf, those alphas, and their
+    # nonzero-delta steps (moves)
     cd: torch.Tensor | None = None
 
 
 def count_sweeps(cd: torch.Tensor | None) -> None:
     """Add a search's `FusedSearch.cd`, read on the host, to the counters
-    `cd.sweeps` and `cd.live_alphas`."""
+    `cd.sweeps`, `cd.live_alphas` and `cd.moves`."""
     if cd is not None:
         trace.count("cd.sweeps", int(cd[0]))
         trace.count("cd.live_alphas", int(cd[1]))
+        trace.count("cd.moves", int(cd[2]))
 
 
 def _pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -411,8 +413,9 @@ def _fused_search(G: torch.Tensor, b: torch.Tensor, n_samples: int,
     cd = None
     if stats is not None:
         rounds = torch.stack(live)
-        cd = torch.stack([(stats[:, :, 0].sum(dim=1) * rounds).sum(),
-                          rounds.sum() * grid_size])
+        per_round = stats.sum(dim=1) * rounds[:, None]    # (rounds, 2)
+        cd = torch.stack([per_round[:, 0].sum(), rounds.sum() * grid_size,
+                          per_round[:, 1].sum()])
     return FusedSearch(mask=mask, alpha=alpha, support=mask.sum(), grids=grids,
                        cd=cd)
 

@@ -54,6 +54,84 @@ def test_cd_kernel_matches_plain_version(card, c):
     np.testing.assert_array_equal(stats.cpu().numpy(), stats_ref.cpu().numpy())
 
 
+# every template boundary of K1 (1-16 warps of 1-2 chunks) and K2 (8 or
+# 16 warps of 8 chunks, 8 of 32 above c = 4096), on both sides (c = 32·M·W
+# takes the instance without bounds tests); the plain version's time on
+# the card grows with c x sweeps (about 25 s at c = 512 and 200 sweeps),
+# so K2's widest widths run fewer sweeps
+K1_WIDTHS = [1, 31, 32, 33, 64, 65, 128, 129, 256, 257, 512, 513, 1024]
+K2_WIDTHS = [1025, 2048, 2049, 4096, 4097, 8192]
+
+
+def _boundary_grid(c, device):
+    """A correlated (rank-deficient) Gram with zero-diagonal columns, and a
+    grid of 16 alphas: dense ones (the smallest), 0, moderate ones, ones
+    above max|b| (nothing moves after the first sweep) and +inf."""
+    rng = np.random.default_rng(c)
+    rows = max(c // 2, 1)
+    Z = rng.normal(size=(rows, c)).astype(np.float32)
+    Z[:, 1::3] += 0.5 * Z[:, ::3][:, :Z[:, 1::3].shape[1]]
+    y = (Z[:, : max(c // 4, 1)].sum(axis=1)
+         + 0.05 * rng.normal(size=rows)).astype(np.float32)
+    gram = lasso.lasso_gram(torch.from_numpy(Z).to(device),
+                            torch.from_numpy(y).to(device))
+    G, b = gram.G.clone(), gram.b.clone()
+    for j in sorted({0, c // 2, c - 1}) if c >= 3 else []:
+        G[j, :] = 0.0
+        G[:, j] = 0.0
+        b[j] = 0.0
+    a_max = float(b.abs().max())
+    alphas = np.concatenate([np.geomspace(1e-7, 1e-4, 6) * a_max, [0.0],
+                             np.geomspace(1e-2, 0.5, 4) * a_max,
+                             [2.0 * a_max, 10.0 * a_max], [np.inf] * 3])
+    return G, b, torch.as_tensor(alphas, dtype=torch.float32).to(device)
+
+
+def _kernel_vs_plain(G, b, alphas, n_sweeps, tol):
+    A = alphas.shape[0]
+    stats = torch.zeros((A, 2), dtype=torch.int32, device=G.device)
+    stats_ref = torch.zeros_like(stats)
+    got = lasso_cd.cd_solve_grid(G, b, alphas, n_sweeps=n_sweeps, tol=tol,
+                                 stats=stats)
+    torch.cuda.synchronize()
+    ref = lasso_cd.cd_solve_grid_plain(G, b, alphas, n_sweeps=n_sweeps,
+                                       tol=tol, stats=stats_ref)
+    np.testing.assert_array_equal(lasso.support_mask(got).cpu().numpy(),
+                                  lasso.support_mask(ref).cpu().numpy())
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                  ref.cpu().numpy().view(np.uint32))
+    np.testing.assert_array_equal(stats.cpu().numpy(), stats_ref.cpu().numpy())
+    return got, stats.cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", K1_WIDTHS + K2_WIDTHS)
+def test_cd_kernel_matches_plain_version_at_template_boundaries(card, c):
+    """K1 (c <= 1024) and K2 at every template boundary against the plain
+    version on the same card inputs, betas bit for bit (signs of zero
+    included), identical supports, and the same sweeps and nonzero steps
+    for every alpha: dense alphas, +inf alphas and zero-diagonal columns
+    in one grid, once under the usual stopping rule and once run to the
+    sweep cap (tol < 0: no alpha stops early); 200 sweeps for K1 and for
+    K2 up to c = 2048 (the cap run 3 for K2), 12 above."""
+    G, b, alphas = _boundary_grid(c, card)
+    k2 = c > lasso_cd.MAX_C
+    cap = 200 if c <= 2048 else 12
+    before = (lasso_cd.LAUNCHES, lasso_cd.LAUNCHES_STREAM)
+    got, stats = _kernel_vs_plain(G, b, alphas, cap, 1e-8)
+    assert (lasso_cd.LAUNCHES, lasso_cd.LAUNCHES_STREAM) == \
+        (before[0] + (not k2), before[1] + k2)
+    assert stats[-3:].tolist() == [[1, 0]] * 3          # +inf: one empty sweep
+    assert torch.equal(got[-3:], torch.zeros_like(got[-3:]))
+    if c >= 3:
+        dead = sorted({0, c // 2, c - 1})
+        assert not got[:, dead].any()
+    assert stats[:6, 1].min() > 0                       # the dense alphas move
+    cap = 3 if k2 else 200
+    _, capped = _kernel_vs_plain(G, b, alphas[:-3], cap, -1.0)
+    assert (capped[:, 0] == cap).all()
+
+
 @pytest.mark.cuda
 def test_cd_kernel_rejects_bad_inputs(card):
     G = torch.eye(8, device=card)
@@ -105,14 +183,31 @@ def test_stream_kernel_matches_plain_version_at_c2048(card):
 
 
 @pytest.mark.cuda
-def test_stream_kernel_equals_k1(card):
-    """K2 forced at c = 512, where the dispatch takes K1: the same betas bit
-    for bit over the full 200 sweeps."""
-    gram, alphas = _gate_problem(1, 512, card)
-    k1 = lasso_cd.cd_solve_grid(gram.G, gram.b, alphas)
-    k2 = lasso_cd.cd_solve_grid_stream(gram.G, gram.b, alphas)
+@pytest.mark.parametrize("c", [512, 513, 640, 1000, 1024])
+def test_stream_kernel_equals_k1(card, c):
+    """K2 forced at 512 <= c <= 1024, where the dispatch takes K1 (8 or 16
+    warps of 2 chunks, against K2's 8 warps of 8): the same betas and stats
+    bit for bit over the full 200 sweeps."""
+    gram, alphas = _gate_problem(1, c, card)
+    st1 = torch.zeros((alphas.shape[0], 2), dtype=torch.int32, device=card)
+    st2 = torch.zeros_like(st1)
+    k1 = lasso_cd.cd_solve_grid(gram.G, gram.b, alphas, stats=st1)
+    k2 = lasso_cd.cd_solve_grid_stream(gram.G, gram.b, alphas, stats=st2)
     torch.cuda.synchronize()
-    np.testing.assert_array_equal(k2.cpu().numpy(), k1.cpu().numpy())
+    np.testing.assert_array_equal(k2.cpu().numpy().view(np.uint32),
+                                  k1.cpu().numpy().view(np.uint32))
+    np.testing.assert_array_equal(st2.cpu().numpy(), st1.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cd_kernels_do_not_spill(card):
+    """ptxas reports no spill for any instance of K1/K2."""
+    lasso_cd.build()
+    report = lasso_cd.ptxas_report()
+    lines = [l for l in report.splitlines() if "spill" in l]
+    assert len(lines) >= 7, report
+    assert all("0 bytes spill stores, 0 bytes spill loads" in l
+               for l in lines), report
 
 
 @pytest.mark.cuda
@@ -150,10 +245,10 @@ def test_fused_search_on_card_matches_cpu(card, prefer):
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,n_sweeps", [(37, 200), (130, 200), (4100, 2)])
 def test_kernel_pads_widths_off_the_tma_grain(card, c, n_sweeps):
-    """The kernels copy rows in 16-byte units, so a width that is not a
-    multiple of 4 goes through inert zero padding; and K2's widest instance
-    (32 warps, c > 4096): still the plain version's betas and stats, bit for
-    bit."""
+    """The kernels copy the diagonal blocks in 16-byte units, so a width
+    that is not a multiple of 4 goes through inert zero padding; and K2's
+    widest instance (8 warps of 32 chunks, c > 4096): still the plain
+    version's betas and stats, bit for bit."""
     Z, y = _problem(c, c, 8 * c if c < 1024 else 2 * c)
     gram = lasso.lasso_gram(Z.to(card), y.to(card))
     alphas = torch.as_tensor(np.geomspace(1e-4, 0.5, 8) * gram.n_samples,
@@ -451,7 +546,7 @@ def test_traced_pass_on_the_card(card, monkeypatch):
     assert counts["cd.k1_launches"] > 0
     assert counts["cd.live_alphas"] == \
         cfg.lasso.grid_size * sum(r.grids for r in res.reports)
-    assert counts["cd.live_alphas"] <= counts["cd.sweeps"]
+    assert counts["cd.live_alphas"] <= counts["cd.sweeps"] < counts["cd.moves"]
     for name in base.selections:
         np.testing.assert_array_equal(res.selections[name],
                                       base.selections[name])

@@ -232,6 +232,7 @@ def test_traced_solve_is_bit_identical_with_every_span(net):
     assert counts["cd.live_alphas"] == grid * sum(r.grids for r in res.reports)
     assert counts["cd.live_alphas"] <= counts["cd.sweeps"] <= \
         counts["cd.live_alphas"] * default_config().lasso.n_sweeps
+    assert 0 < counts["cd.moves"]
 
 
 def test_freeze_and_preprocess_spans():
@@ -253,9 +254,9 @@ def test_freeze_and_preprocess_spans():
 
 
 def test_cd_sweeps_are_the_plain_stats_over_live_alphas(monkeypatch):
-    """`cd.sweeps` and `cd.live_alphas` of a search equal the plain CD's
-    own `stats` summed over the alphas that were not +inf, round by
-    round, and the rounds after the search ended count nothing."""
+    """`cd.sweeps`, `cd.live_alphas` and `cd.moves` of a search equal the
+    plain CD's own `stats` summed over the alphas that were not +inf,
+    round by round, and the rounds after the search ended count nothing."""
     rng = np.random.default_rng(5)
     Z = torch.from_numpy(rng.normal(size=(900, 40)).astype(np.float32))
     gram = lasso.lasso_gram(Z, Z[:, :12].sum(dim=1)
@@ -273,15 +274,18 @@ def test_cd_sweeps_are_the_plain_stats_over_live_alphas(monkeypatch):
     lasso.fused_search_alpha(gram, 10, 0.1, max_rounds=8, prefer="bottom")
     counts = trace.counters()
     trace.disable()
-    sweeps = live = 0
+    sweeps = live = moves = 0
     for a_n in grids:
         stats = torch.zeros((a_n.shape[0], 2), dtype=torch.int32)
         lasso_cd.cd_solve_grid_plain(gram.G, gram.b, a_n, stats=stats)
         ok = torch.isfinite(a_n)
         sweeps += int(stats[ok, 0].sum())
+        moves += int(stats[ok, 1].sum())
         live += int(ok.sum())
     assert len(grids) == 8 and live < 8 * grids[0].shape[0]  # it ended early
-    assert (counts["cd.sweeps"], counts["cd.live_alphas"]) == (sweeps, live)
+    assert moves > sweeps
+    assert (counts["cd.sweeps"], counts["cd.live_alphas"],
+            counts["cd.moves"]) == (sweeps, live, moves)
 
 
 def test_layer_table_lines():

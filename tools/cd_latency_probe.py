@@ -2,15 +2,20 @@
 """Latency probe of the steps the LASSO CD kernels (channel_pruning_tpu_torch/
 csrc/lasso_cd.cu) chain per coordinate, on one NVIDIA card:
 
-    python3 tools/cd_latency_probe.py
+    python3 tools/cd_latency_probe.py [--sass DIR]
 
 One warp times, with clock64, dependent chains of: the candidate step
-(cd_candidate's operations, its division included), the division alone,
+(the first kernels' operations, their division included), the division alone,
 ballot + ffs + shuffle, a shared-memory load, a global (L2) load, a full
 window step (candidate, ballot, shuffle, the staged-block update), a TMA row
 copy from issue to arrival, the issue of one TMA copy, and a row update of q
-held in registers against one held in shared memory (read-modify-write).
-Prints cycles per step at c = 512 and c = 2048, and the card's clock.
+held in registers against one held in shared memory (read-modify-write);
+then the candidate step as K1/K2 now compute it (the division an f64
+product with the diagonal's reciprocal), that product alone, the first
+candidate with every numerator 0, and the window step with the new
+candidate, its first mover found by ballot + ffs or by redux.min.
+Prints cycles per step at c = 512 and c = 2048, and the card's clock;
+`--sass DIR` also writes the probe's SASS there (cuobjdump).
 """
 from __future__ import annotations
 
@@ -30,6 +35,18 @@ __device__ __forceinline__ float candidate(float bk, float qk, float dk,
   const float mag = fmaxf(__fsub_rn(fabsf(cj), a), 0.0f);
   const float bj = __fdiv_rn(__fmul_rn(sgn, mag), sdk);
   return dk > 0.0f ? bj : 0.0f;
+}
+// the candidate as K1/K2 compute it since the division became an f64
+// product with the diagonal's reciprocal (rinv = 1/d in f64, 1 where d <= 0)
+__device__ __forceinline__ float candidate_rcp(float bk, float qk, float dk,
+                                               double rinv, float beta,
+                                               float a) {
+  const float cj = __fadd_rn(__fsub_rn(bk, qk), __fmul_rn(dk, beta));
+  const float mag = fmaxf(__fsub_rn(fabsf(cj), a), 0.0f);
+  const bool live = dk > 0.0f;
+  const float num = (live && cj < 0.0f) ? -mag
+                                        : ((live && cj > 0.0f) ? mag : 0.0f);
+  return __double2float_rn(__dmul_rn(static_cast<double>(num), rinv));
 }
 __device__ __forceinline__ unsigned saddr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -149,9 +166,49 @@ __global__ void probe(const float* __restrict__ G, float* sink,
       qs[k] = __fadd_rn(qs[k], __fmul_rn(row[k], d));
   }
   t1 = clock64(); out[9] = (t1 - t0) / (n * (c / 32));
+  const double rinv = 1.0 / static_cast<double>(dk);
+  float qn = q;
+  t0 = clock64();
+  for (int it = 0; it < n; ++it)
+    qn = __fadd_rn(qn, __fmul_rn(candidate_rcp(bk, qn, dk, rinv, beta, 0.1f),
+                                 1e-30f));
+  t1 = clock64(); out[10] = (t1 - t0) / n;
+  float y = q + 1.0f;
+  t0 = clock64();
+  for (int it = 0; it < n; ++it)
+    y = __double2float_rn(__dmul_rn(static_cast<double>(y), rinv)) + 1.0f;
+  t1 = clock64(); out[11] = (t1 - t0) / n;
+  float qz = q;
+  t0 = clock64();
+  for (int it = 0; it < n; ++it)  // every numerator 0 (|c| below alpha)
+    qz = __fadd_rn(qz, __fmul_rn(candidate(bk, qz, dk, dk, beta, 1e30f),
+                                 1e-30f));
+  t1 = clock64(); out[12] = (t1 - t0) / n;
+  float qw = q;
+  t0 = clock64();
+  for (int it = 0; it < n; ++it) {
+    const float bj = candidate_rcp(bk, qw, dk, rinv, beta, 0.1f);
+    const float delta = __fsub_rn(bj, beta);
+    const unsigned m = __ballot_sync(0xffffffffu, delta != 0.0f) | 1u;
+    const int f = __ffs(m) - 1;
+    const float d = __shfl_sync(0xffffffffu, delta, f);
+    qw = __fadd_rn(qw, __fmul_rn(blk[f * 32 + lane], __fmul_rn(d, 1e-30f)));
+  }
+  t1 = clock64(); out[13] = (t1 - t0) / n;
+  float qr2 = q;
+  t0 = clock64();
+  for (int it = 0; it < n; ++it) {
+    const float bj = candidate_rcp(bk, qr2, dk, rinv, beta, 0.1f);
+    const float delta = __fsub_rn(bj, beta);
+    const int f = min(__reduce_min_sync(0xffffffffu,
+                                        delta != 0.0f ? lane : 32), 31);
+    const float d = __shfl_sync(0xffffffffu, delta, f);
+    qr2 = __fadd_rn(qr2, __fmul_rn(blk[f * 32 + lane], __fmul_rn(d, 1e-30f)));
+  }
+  t1 = clock64(); out[14] = (t1 - t0) / n;
   float acc = 0.0f;
   for (int t = 0; t < 16; ++t) acc += qr[t];
-  sink[lane] = q + x + v + idx + j + acc + qs[lane];
+  sink[lane] = q + x + v + idx + j + acc + qs[lane] + qn + y + qz + qw + qr2;
 }
 
 extern "C" int run(const float* G, float* sink, long long* out, int n,
@@ -167,12 +224,29 @@ extern "C" int run(const float* G, float* sink, long long* out, int n,
 NAMES = ["candidate step", "division", "ballot+ffs+shfl", "shared load",
          "global (L2) load", "window step", "TMA row copy, issue to arrival",
          "TMA issue", "row update, q in registers (a column)",
-         "row update, q in shared memory (a column)"]
+         "row update, q in shared memory (a column)",
+         "candidate step, f64 reciprocal", "f64 reciprocal product alone",
+         "candidate step, numerator 0", "window step, f64 reciprocal",
+         "window step, f64 reciprocal, redux.min first mover"]
+
+
+def dump_sass(so: Path, dst: Path) -> None:
+    """cuobjdump's SASS of a built library into `dst`."""
+    r = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(so)],
+                       capture_output=True, text=True)
+    dst.write_text(r.stdout + r.stderr)
+    print(f"[sass] {so.name} -> {dst} ({len(r.stdout.splitlines())} lines)")
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sass", type=Path, default=None,
+                    help="write the SASS of the probe and of K1/K2 here")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("cd_latency_probe: needs an NVIDIA card", file=sys.stderr)
         return 2
@@ -184,6 +258,15 @@ def main() -> int:
                     "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-o",
                     str(so), str(src)], check=True)
+    if args.sass is not None:
+        sys.path.insert(0, str(build.parents[1]))
+        from channel_pruning_tpu_torch.kernels import lasso_cd
+
+        args.sass.mkdir(parents=True, exist_ok=True)
+        lasso_cd.build()
+        dump_sass(so, args.sass / "cd_latency_probe.sass")
+        dump_sass(lasso_cd._so_path(), args.sass / "lasso_cd.sass")
+        (args.sass / "lasso_cd.ptxas.txt").write_text(lasso_cd.ptxas_report())
     lib = ctypes.CDLL(str(so))
     lib.run.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
@@ -192,7 +275,7 @@ def main() -> int:
     for c in (512, 2048):
         G = torch.randn(512 * c, device="cuda")
         sink = torch.zeros(32, device="cuda")
-        out = torch.zeros(10, dtype=torch.int64, device="cuda")
+        out = torch.zeros(len(NAMES), dtype=torch.int64, device="cuda")
         rc = lib.run(G.data_ptr(), sink.data_ptr(), out.data_ptr(), 4000, c)
         torch.cuda.synchronize()
         if rc != 0:

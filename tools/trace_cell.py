@@ -16,6 +16,8 @@ as the benchmark reads them; a traced window adds, a job each:
   upload_ms      device busy in `freeze.upload` and `pass.upload`
   drain_wait_ms  host ms in `pass.drain_wait`
   cd_sweeps      `cd.sweeps` / `cd.live_alphas` over the window
+  cd_moves       `cd.moves` / `cd.sweeps`: nonzero-delta steps a sweep of
+                 a live alpha, over the window
 
 "Device busy" is the union of the trace's operations clipped to the
 spans' device extents. It also checks the shared clock (device starts
@@ -224,6 +226,8 @@ def windows(root: Path, workload: str, seed: int, seconds: float, device,
                 drain_wait_ms=host_ms(spans, ("pass.drain_wait",), n),
                 cd_sweeps=(counts.get("cd.sweeps", 0)
                            / max(counts.get("cd.live_alphas", 0), 1)),
+                cd_moves=(counts.get("cd.moves", 0)
+                          / max(counts.get("cd.sweeps", 0), 1)),
                 counters=counts, spans=len(spans),
                 clock=clock_checks(spans, hspans.items, jobs),
                 lead_ms=lead_ms(spans),
