@@ -4,28 +4,60 @@ the program. Nothing here imports the program; its output arrives as plain
 layer lists, numpy parameters, its selections and the frozen cache's
 arrays.
 
+The layers a job solves follow the program's stated contract
+(`c3.solve_prune`: `channel_targets` maps a producer conv to the outputs it
+keeps, `input_targets` a consumer conv to the inputs its gate keeps), read
+on the original net (`solved_layers`). A depthwise conv (group equal to its
+outputs and its input channels) maps channel i to channel i: it passes
+channels for the search as a ReLU does, and is never a solved layer. A
+solved layer is a group-1 conv, not the first conv, whose input is written
+by conv p (a depthwise conv too) through channel-preserving layers, with a
+target `channel_targets[p]` (or `input_targets` of the layer) below its
+input width. Up from the layer through channel-preserving layers and
+depthwise convs to the nearest group-1 conv, the producer:
+  - a shrink, where that chain feeds the layer alone: the producer and
+    every depthwise conv between lose the dropped channels;
+  - otherwise a gate: a Select where the chain stops being the layer's
+    alone (in front of the layer for `input_targets`), the depthwise convs
+    below it shrunk, the producer at its width.
+
 The numbers, each against the limit of the cell's file under `limits/`:
-  freeze_gap   the program's sampled ground truth against the reference's
-               own freeze of the original net at its own point plan: the
-               largest max|gap| over a tensor's RMS; inf where a tensor or
-               the plan differs;
-  counts_off   the layers whose kept count leaves the band the traffic
-               states, or that are missing: exact, limit 0;
-  select_off   per solved layer, the share of the k channels the program
-               kept that the reference's own LASSO does not keep: the
-               reference rebuilds the layer's search problem (Z on the
-               job's row subsample, the original weights, the ground truth
-               less the bias and the junction's other summands; X the
-               layer's input in the job's running net at full width),
-               solves it exactly at the alpha the program reports, and
-               keeps the k largest |beta|; the largest;
-  refit_excess per solved layer, (J - J_opt) / ||Y - mean(Y)||^2, J the
-               refit's objective (squared error plus the job's ridge, a
-               jitter times the Gram's trace) at the program's weights
-               and J_opt its least value for the same kept channels; X is
-               the layer's input in the program's compressed model at the
-               layer's planned points, Y the ground truth less the other
-               summands of its residual junction; the largest.
+  freeze_gap    the program's sampled ground truth against the reference's
+                own freeze of the original net at its own point plan: the
+                largest max|gap| over a tensor's RMS; inf where a tensor or
+                the plan differs;
+  counts_off    the layers whose kept count leaves the band the traffic
+                states, or that are missing: a shrink read from the shrunk
+                producer's width, a gate from its Select's indices wherever
+                along the chain it sits; exact, limit 0;
+  select_off    per solved layer, the share of the k channels the program
+                kept that the reference's own LASSO does not keep: the
+                reference rebuilds the layer's search problem (Z on the
+                job's row subsample, the original weights, the ground truth
+                less the bias and the junction's other summands; X the
+                layer's input in the job's running net at full width),
+                solves it exactly at the alpha the program reports, and
+                keeps the k largest |beta|; the largest;
+  refit_excess  per solved layer, (J - J_opt) / ||Y - mean(Y)||^2, J the
+                refit's objective (squared error plus the job's ridge, a
+                jitter times the Gram's trace) at the program's weights
+                and J_opt its least value for the same kept channels; X is
+                the layer's input in the program's compressed model at the
+                layer's planned points, Y the ground truth less the other
+                summands of its residual junction as they were when the job
+                solved the layer; a producer whose outputs a later layer
+                pruned, through depthwise convs or not, judged on the
+                outputs kept; the largest;
+  depthwise_off per depthwise conv the job shrank or gated, max|W - W_orig|
+                over the RMS of W_orig, W_orig its original weights (folded
+                with their BatchNorm) at the channels the layer it feeds
+                reports, bias included; inf where its width or the gate's
+                Select keeps another set; the largest, 0 in a net without
+                depthwise convs. It sees a model built from other channels
+                than the selection reported, with the refit consistent
+                with them, which the other numbers miss where no solved
+                layer follows (the refit is judged on the model's own X,
+                the selection on the reported mask).
 The control is the reference in the program's place in the next lower
 precision: its freeze in TF32 (the freeze is f32 in every job), its
 searches and refits on inputs rounded to `traffic["control_rounding"]`
@@ -59,55 +91,117 @@ def band(target: int, tol: float) -> tuple[int, int]:
     return int(target), int(math.floor(target * (1.0 + tol) + 1e-6))
 
 
-def _consumer_of(layers: list[dict], tensor: str) -> str | None:
-    """The first conv that reads `tensor` through channel-preserving layers."""
-    want = {tensor}
-    for l in layers:
-        if not (set(l["bottoms"]) & want):
-            continue
-        if l["type"] == "Convolution":
-            return l["name"]
-        if l["type"] in _PASS_THROUGH:
-            want |= set(l["tops"])
+def _depthwise(l: dict) -> bool:
+    """A depthwise conv: one output a group (as `prune.apply_pruning` tells
+    one; in the nets here each group also reads one input channel)."""
+    a = l["attrs"]
+    g = int(a.get("group", 1))
+    return l["type"] == "Convolution" and g > 1 and g == int(a["num_output"])
+
+
+def _group1(l: dict | None) -> bool:
+    return l is not None and l["type"] == "Convolution" \
+        and int(l["attrs"].get("group", 1)) == 1
+
+
+def _writer(layers: list[dict], tensor: str, before: int) -> int | None:
+    """The index of the last layer before index `before` that writes
+    `tensor` (an in-place layer writes its bottom's name)."""
+    for i in range(before - 1, -1, -1):
+        if tensor in layers[i]["tops"]:
+            return i
     return None
 
 
+def _walk_up(layers: list[dict], consumer: str) -> tuple[list[str], dict | None]:
+    """(the depthwise convs between `consumer` and the layer that writes its
+    input channels, nearest first; that layer, or None at the input): up
+    from the consumer's input through channel-preserving layers and
+    depthwise convs."""
+    i = next(k for k, l in enumerate(layers) if l["name"] == consumer)
+    tensor, dws = layers[i]["bottoms"][0], []
+    while True:
+        i = _writer(layers, tensor, i)
+        if i is None:
+            return dws, None
+        l = layers[i]
+        if _depthwise(l):
+            dws.append(l["name"])
+        elif l["type"] not in _PASS_THROUGH:
+            return dws, l
+        tensor = l["bottoms"][0]
+
+
+def _feeds_only(layers: list[dict], name: str, consumer: str) -> bool:
+    """Whether layer `name`'s output reaches no layer but `consumer`
+    through channel-preserving layers and depthwise convs."""
+    i = next(k for k, l in enumerate(layers) if l["name"] == name)
+    want = set(layers[i]["tops"])
+    for l in layers[i + 1:]:
+        if l["name"] == consumer or not set(l["bottoms"]) & want:
+            continue
+        if l["type"] not in _PASS_THROUGH and not _depthwise(l):
+            return False
+        want |= set(l["tops"])
+    return True
+
+
 def solved_layers(orig: list[dict], traffic: dict) -> list[dict]:
-    """The layers a job solves, in graph order: {consumer, producer,
-    target, gate}: the consumers of the producers the traffic prunes, and
-    the consumers it gates (a Select in front, the producer unchanged)."""
+    """The layers a job solves, in graph order, by the module's rule:
+    {consumer, producer (the shrunk conv, None for a gate), target, gate,
+    depthwise (the depthwise convs the job shrinks for it, nearest
+    first)}."""
     by = {l["name"]: l for l in orig}
     convs = [l["name"] for l in orig if l["type"] == "Convolution"]
     channels = {t: s[1] for t, s in
                 shp.tensor_shapes(orig, (1, 3, 224, 224)).items()}
-    items = {}
-    for p, t in (traffic.get("channel_targets") or {}).items():
-        if p in by and int(t) < int(by[p]["attrs"]["num_output"]):
-            c = _consumer_of(orig, by[p]["tops"][0])
-            if c is not None:
-                items[c] = {"consumer": c, "producer": p, "target": int(t),
-                            "gate": False}
-    for c, t in (traffic.get("input_targets") or {}).items():
-        if c in by and int(t) < channels[by[c]["bottoms"][0]]:
-            items[c] = {"consumer": c, "producer": None, "target": int(t),
-                        "gate": True}
-    return [items[c] for c in convs if c in items]
+    inputs = traffic.get("input_targets") or {}
+    outputs = traffic.get("channel_targets") or {}
+    items = []
+    for c in convs[1:]:
+        if not _group1(by[c]):
+            continue
+        dws, top = _walk_up(orig, c)
+        if c in inputs:
+            t, gate, dws = int(inputs[c]), True, []
+        else:
+            p = dws[0] if dws else (top["name"] if top is not None
+                                    and top["type"] == "Convolution" else None)
+            if p is None or p not in outputs:
+                continue
+            t = int(outputs[p])
+            gate = not (_group1(top) and _feeds_only(orig, top["name"], c))
+            if gate:
+                n = next((k for k, d in enumerate(dws)
+                          if not _feeds_only(orig, d, c)), len(dws))
+                dws = dws[:n]
+        if t >= channels[by[c]["bottoms"][0]]:
+            continue
+        items.append({"consumer": c, "producer": None if gate else top["name"],
+                      "target": t, "gate": gate, "depthwise": dws})
+    return items
+
+
+def _gate_of(out: list[dict], consumer: str) -> dict | None:
+    """The Select of a gate, wherever along the consumer's chain of
+    channel-preserving layers and depthwise convs it sits, or None."""
+    _, top = _walk_up(out, consumer)
+    return top if top is not None and top["type"] == "Select" else None
 
 
 def counts_off(orig: list[dict], out: list[dict], traffic: dict,
                tol: float) -> tuple[int, list[str]]:
     """(how many solved layers leave their band or are missing, their
-    names): a pruned producer's outputs, or a gate's kept inputs."""
+    names): a shrunk producer's outputs, or a gate's kept inputs."""
     by_out = {l["name"]: l for l in out}
-    producer_of = {t: l for l in out for t in l["tops"]}
     bad = []
     for it in solved_layers(orig, traffic):
         lo, hi = band(it["target"], tol)
-        if it["gate"]:
-            l = by_out.get(it["consumer"])
-            src = producer_of.get(l["bottoms"][0]) if l else None
-            n = len(src["attrs"].get("indices") or ()) \
-                if src is not None and src["type"] == "Select" else None
+        if it["consumer"] not in by_out:
+            n = None
+        elif it["gate"]:
+            sel = _gate_of(out, it["consumer"])
+            n = len(sel["attrs"].get("indices") or ()) if sel else None
         else:
             l = by_out.get(it["producer"])
             n = int(l["attrs"]["num_output"]) if l else None
@@ -298,20 +392,31 @@ def running_net(out: list[dict], out_params: Mapping, orig: list[dict],
                 rows: Mapping, gt: Mapping, ridge: float, device
                 ) -> tuple[list[dict], dict]:
     """(layers, parameters) of the job's running net at full width, as each
-    layer's search saw it: every gate passes all its channels; a solved
-    layer reads all its input channels, the dropped ones through zero
-    columns; a pruned producer has all its outputs, the kept ones the
-    program's, the dropped ones the reference's own refit over the inputs
-    the program kept (or, for a producer the job did not solve, its
-    original weights). `rows` are the compressed model's (`layer_rows`)."""
+    layer's search saw it: every gate, wherever it sits, passes all its
+    channels; a solved layer reads all its input channels, the dropped ones
+    through zero columns; a pruned producer has all its outputs, the kept
+    ones the program's, the dropped ones the reference's own refit over the
+    inputs the program kept (or, for a producer the job did not solve, its
+    original weights); a depthwise conv the job shrank has all its
+    channels again, its original weights. `rows` are the compressed
+    model's (`layer_rows`)."""
     solved = {it["consumer"] for it in items}
     next_of = {it["producer"]: it["consumer"] for it in items if it["producer"]}
+    shrunk_dw = {d for it in items for d in it["depthwise"]}
+    by_orig = {l["name"]: l for l in orig}
     layers, params = [], {}
     for l in out:
         l = {**l, "attrs": dict(l["attrs"])}
         name = l["name"]
         if l["type"] == "Select":
             l["attrs"]["indices"] = None
+        if name in shrunk_dw:
+            a = by_orig[name]["attrs"]
+            l["attrs"].update(num_output=a["num_output"], group=a["group"])
+            W, b = _folded(orig, params_t, name)
+            params[name] = {"W": W.float(), "b": b.float()}
+            layers.append(l)
+            continue
         p = {k: torch.as_tensor(np.asarray(v)).to(device).double()
              for k, v in out_params.get(name, {}).items()}
         if l["type"] == "Convolution" and (name in solved or name in next_of):
@@ -345,6 +450,43 @@ def running_net(out: list[dict], out_params: Mapping, orig: list[dict],
         params[name] = {k: v.float() for k, v in p.items()}
         layers.append(l)
     return layers, params
+
+
+def solved_later(orig: list[dict], items: list[dict]) -> dict[str, set]:
+    """{solved layer: the layers solved after it that the other summands of
+    its junction depend on} (a shortcut solved before the branch beside
+    it), for the layers that have such."""
+    order = [it["consumer"] for it in items]
+    late = {}
+    for i, c in enumerate(order):
+        others = _residual(orig, c)[1]
+        after = set(order[i + 1:]) & shp.ancestors(orig, others) if others else set()
+        if after:
+            late[c] = after
+    return late
+
+
+def summands_as_solved(rows: Mapping, late: Mapping[str, set], run: tuple,
+                       orig: list[dict], params_t: Mapping, images: np.ndarray,
+                       plan: Mapping, items: list[dict], device) -> dict:
+    """`rows` with the other junction summands of each layer of `late` as
+    the job saw them when it solved that layer (c3.solve_prune fits a
+    junction's summand to the ground truth less the other summands'
+    current values): in the running net `run` with the layers solved after
+    it at their original weights."""
+    run_layers, run_params = run
+    out = dict(rows)
+    for it in items:
+        c = it["consumer"]
+        if c not in late:
+            continue
+        params = dict(run_params)
+        for name in late[c]:
+            W, b = _folded(orig, params_t, name)
+            params[name] = {"W": W.float(), "b": b.float()}
+        got = layer_rows(run_layers, params, images, plan, [it], orig, device)
+        out[c] = (rows[c][0], got[c][1])
+    return out
 
 
 def select_off(items: list[dict], rows_full: Mapping, gt: Mapping,
@@ -388,6 +530,55 @@ def select_off(items: list[dict], rows_full: Mapping, gt: Mapping,
             rnd = plain.ROUNDINGS[rounding]
             keep = chosen(rnd(Xs.float()), rnd(W2.float()))
         off[c] = float((keep & ~ref).sum()) / k
+    return off
+
+
+def depthwise_off(orig: list[dict], out: list[dict], out_params: Mapping,
+                  params_t: Mapping, items: list[dict], selections: Mapping
+                  ) -> dict[str, float]:
+    """Per depthwise conv the job shrank or gated, max |W_out - W_orig[kept]|
+    over the RMS of W_orig[kept], weights and bias together: W_orig its
+    original weights with their BatchNorm and Scale folded in (`_folded`),
+    kept the channels the consumer it feeds reports (`selections`); inf
+    where its width, or a gate's Select in front of the chain, keeps
+    another set of channels."""
+    by_out = {l["name"]: l for l in out}
+    off = {}
+    for it in items:
+        if not it["depthwise"]:
+            continue
+        keep = np.asarray(selections.get(it["consumer"], ()), bool)
+        idx = np.flatnonzero(keep)
+        k = len(idx)
+        if it["consumer"] not in by_out:
+            off.update({d: float("inf") for d in it["depthwise"]})
+            continue
+        if it["gate"]:
+            sel = _gate_of(out, it["consumer"])
+            got = sel["attrs"].get("indices") if sel else None
+            if got is None or not np.array_equal(np.asarray(got), idx):
+                off.update({d: float("inf") for d in it["depthwise"]})
+                continue
+        for d in it["depthwise"]:
+            l, p = by_out.get(d), out_params.get(d, {})
+            W0, b0 = _folded(orig, params_t, d)
+            if l is None or "W" not in p or k == 0 or keep.shape != (W0.shape[0],) \
+                    or int(l["attrs"]["num_output"]) != k \
+                    or int(l["attrs"].get("group", 1)) != k:
+                off[d] = float("inf")
+                continue
+            sel = torch.as_tensor(idx, device=W0.device)
+            W0, b0 = W0.index_select(0, sel), b0.index_select(0, sel)
+            W = torch.as_tensor(np.asarray(p["W"])).to(W0.device).double()
+            b = torch.as_tensor(np.asarray(p.get("b", np.zeros(k, np.float32)))
+                                ).to(W0.device).double()
+            if W.shape != W0.shape or b.shape != b0.shape:
+                off[d] = float("inf")
+                continue
+            ref = torch.cat([W0.reshape(-1), b0])
+            rms = float(torch.sqrt(torch.mean(ref ** 2)))
+            gap = float(torch.cat([(W - W0).reshape(-1), b - b0]).abs().max())
+            off[d] = gap / max(rms, 1e-300)
     return off
 
 
@@ -455,13 +646,24 @@ def judge(orig: list[dict], params: Mapping, images: np.ndarray,
     n_off, off = counts_off(orig, out, traffic, cfg_values["rank_tol"])
     nums["counts_off"] = float(n_off)
     detail["counts_off_at"] = off
+    items = solved_layers(orig, traffic)
+    dw = depthwise_off(orig, out, out_params, params_t, items, selections)
+    nums["depthwise_off"], detail["depthwise_off_at"] = _largest(dw)
     out_params_t = _device_params(out_params, device)
     nums["select_off"] = nums["refit_excess"] = float("inf")
     if not n_off:
-        items = solved_layers(orig, traffic)
         ridge = cfg_values["ridge"]
         gt_dev = {t: v.to(device) for t, v in gt.items()}
         rows = layer_rows(out, out_params_t, images, plan, items, orig, device)
+        run, late = None, solved_later(orig, items)
+        if late:
+            try:
+                run = running_net(out, out_params, orig, params_t, items,
+                                  selections, rows, gt_dev, ridge, device)
+                rows = summands_as_solved(rows, late, run, orig, params_t,
+                                          images, plan, items, device)
+            except (KeyError, IndexError, RuntimeError, ValueError) as exc:
+                detail["select_error"] = repr(exc)[:300]
         ex, where, each = refit_excess(items, rows, gt_dev, orig, out_params,
                                        selections, ridge, rounding)
         nums["refit_excess"] = ex
@@ -469,12 +671,15 @@ def judge(orig: list[dict], params: Mapping, images: np.ndarray,
         detail["refit_excess_each"] = each
         if math.isfinite(ex):
             try:
-                run_layers, run_params = running_net(
+                run_layers, run_params = run or running_net(
                     out, out_params, orig, params_t, items, selections, rows,
                     gt_dev, ridge, device)
+                others = {c: rows[c][1] for c in late}
                 del rows
                 rows_full = layer_rows(run_layers, run_params, images, plan,
                                        items, orig, device)
+                rows_full = {c: (X, others.get(c, o))
+                             for c, (X, o) in rows_full.items()}
                 n_rows = next(iter(rows_full.values()))[0].shape[0]
                 sub = subsample_rows(n_rows, cfg_values["seed"],
                                      cfg_values["subsample_rows"])

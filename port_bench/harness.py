@@ -227,6 +227,7 @@ def run(args, root: Path, t_start: float) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
+    torch.set_num_threads(1)
     return measure(cell, args, torch.device("cuda"), t_start)
 
 
@@ -245,9 +246,18 @@ def measure(cell: Cell, args, device, t_start: float) -> int:
                                            len(order))
     judged_at = order.index(JUDGED_SET)
     spans = job.Spans()
-    # one warm job on each calibration set, in the window's cycle order
+    # One warm job on each calibration set, in the window's cycle order.
+    # Each is held while the next runs, and the judged set's is kept as the
+    # window keeps it, so that the host memory of two jobs' outputs is
+    # taken in set-up: else the window's first job that runs beside a held
+    # output takes it, 0.3-0.5 s slow on ResNet-50.
+    judged = prev = None
     for k in range(-len(pool), 0):
-        program.run(params, pool[k % len(pool)], spans, job=k)
+        out = program.run(params, pool[k % len(pool)], spans, job=k)
+        if k % len(pool) == judged_at:
+            judged = out
+        prev, out = out, None
+    prev = None
     if on_card:
         torch.cuda.synchronize()
     setup_s = time.time() - t_start
@@ -263,7 +273,7 @@ def measure(cell: Cell, args, device, t_start: float) -> int:
     t0 = time.perf_counter()
     deadline = t0 + args.seconds
     k = 0
-    judged = None
+    judged_done = False               # the window judges a job of its own
     while True:
         # job k calibrates on set k mod pool: no two jobs in a row see the
         # same images
@@ -273,9 +283,10 @@ def measure(cell: Cell, args, device, t_start: float) -> int:
         ctx.cd_searches.append(cd_searches(out.reports))
         if k % len(pool) == judged_at:
             judged = out              # the latest job on the judged set
+            judged_done = True
         out = None
         k += 1
-        if time.perf_counter() >= deadline and judged is not None:
+        if time.perf_counter() >= deadline and judged_done:
             break
     t1 = time.perf_counter()
     ctx.window_s = t1 - t0
@@ -351,6 +362,11 @@ def main(argv=None, t_start: float | None = None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
     root = HERE.parent
+    # one process with few threads: the job's host work is one thread's
+    # dispatch and numpy, and idle pools of BLAS and OpenMP threads only
+    # contend with it on a host whose cores are shared
+    for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
+        os.environ[var] = "1"
     cache = root / ".bench_cache"
     os.environ["TORCH_EXTENSIONS_DIR"] = str(cache / "torch_extensions")
     os.environ["TRITON_CACHE_DIR"] = str(cache / "triton")

@@ -4,6 +4,8 @@ each fault a prune cell can have, planted in the program under a run that
 skips only the harness's look for a card. A sound run of the same tiny
 cells comes out true. Tiny cells on the CPU; the limits are theirs
 (conftest.TINY_LIMITS)."""
+import collections
+import dataclasses
 import json
 import types
 
@@ -26,7 +28,7 @@ def _judge(cell, control=False, seed=3):
     return checks.verdict(j["numbers"], cell.limits)
 
 
-@pytest.mark.parametrize("name", ["tvgg.tcp", "tres.trcp"])
+@pytest.mark.parametrize("name", ["tvgg.tcp", "tres.trcp", "txc.txcp"])
 def test_sound_run_passes_and_control_fails(tiny_root, name):
     cell = harness.load_cell(tiny_root, name)
     assert _judge(cell)[0]
@@ -107,17 +109,105 @@ def _selection_by_weight_norm(monkeypatch):
     monkeypatch.setattr(prune, "_fused_layer_solve", fake)
 
 
+def _measure(tiny_root, capsys, name):
+    """The result line of a whole run of cell `name` on the CPU: its seed
+    puts the judged set first in the pool's cycle, so that the window holds
+    one job."""
+    cell = harness.load_cell(tiny_root, name)
+    args = types.SimpleNamespace(workload=name, seed=2 ** 31 + 12, seconds=0.0,
+                                 trace=0)
+    assert harness.measure(cell, args, torch.device("cpu"), 0.0) == 0
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
 @pytest.mark.parametrize("fault", [_state_unchanged, _half_the_rows,
                                    _answer_altered, _ground_truth_altered,
                                    _selection_by_weight_norm])
-@pytest.mark.parametrize("name", ["tvgg.tcp", "tres.trcp"])
+@pytest.mark.parametrize("name", ["tvgg.tcp", "tres.trcp", "txc.txcp"])
 def test_each_fault_makes_a_run_incorrect(tiny_root, monkeypatch, capsys,
                                           fault, name):
     fault(monkeypatch)
-    cell = harness.load_cell(tiny_root, name)
-    args = types.SimpleNamespace(workload=name, seed=2 ** 31 + 11, seconds=0.0,
-                                 trace=0)
-    assert harness.measure(cell, args, torch.device("cpu"), 0.0) == 0
-    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    result = _measure(tiny_root, capsys, name)
     assert result["correct"] is False
     assert result["failed"] == 1
+
+
+# the gate of Xception's exit flow: a Select in front of exit_sep3_dw
+GATED_THROUGH_DEPTHWISE = ("exit_sep3_pw",)
+
+
+def depthwise_on_other_channels(monkeypatch, consumers=GATED_THROUGH_DEPTHWISE):
+    """The model of each gate in `consumers` keeps the channels of its
+    search's selection rolled by one: its Select and the depthwise conv
+    behind it pass those, and the consumer is refit to them and runs so in
+    the running net (every later layer is fit to the model as built); the
+    job reports the search's own selection."""
+    from channel_pruning_tpu_torch.ops import lstsq
+    from channel_pruning_tpu_torch.pipeline import c3, prune
+    real_items, real_solve = c3._layer_items, prune._fused_layer_solve
+    real_apply = prune.apply_pruning
+    order, built = collections.deque(), collections.deque()
+
+    def items(*a, **k):
+        got = real_items(*a, **k)
+        order.extend(it[1] for it in got)
+        return got
+
+    def solve(Xd, W2d, Yd, *a, **k):
+        out = real_solve(Xd, W2d, Yd, *a, **k)
+        if order.popleft() not in consumers:
+            built.append(None)
+            return out
+        c = W2d.shape[1]
+        keep = torch.roll(out.mask, 1)
+        cols = keep[:, None].expand(c, Xd.shape[2] * Xd.shape[3]).reshape(-1)
+        W, b = lstsq.fit_linear(Xd.reshape(Xd.shape[0], -1) * cols.to(Xd.dtype),
+                                Yd, ridge=a[-1])
+        W = W.reshape(W2d.shape)
+        built.append((keep.cpu().numpy(), W[:, keep].cpu().numpy(),
+                      b.cpu().numpy()))
+        return out._replace(Wfull=W, b=b)
+
+    def apply(g, p, consumer, res, shrink_producer=True):
+        model = built.popleft()
+        if model is not None:
+            keep, W, b = model
+            res = dataclasses.replace(res, keep=keep, W=W, b=b)
+        return real_apply(g, p, consumer, res, shrink_producer)
+
+    monkeypatch.setattr(c3, "_layer_items", items)
+    monkeypatch.setattr(prune, "_fused_layer_solve", solve)
+    monkeypatch.setattr(prune, "apply_pruning", apply)
+
+
+def gate_in_place_of_shrink(monkeypatch):
+    """A depthwise chain whose producer should shrink keeps its width: a
+    Select goes in front of the depthwise conv instead."""
+    from channel_pruning_tpu_torch.pipeline import prune
+    real = prune._sole_consumer_chain
+
+    def sole(graph, prod, consumer):
+        if graph.layer(consumer).conv_geometry()["group"] > 1:
+            return False
+        return real(graph, prod, consumer)
+    monkeypatch.setattr(prune, "_sole_consumer_chain", sole)
+
+
+@pytest.mark.parametrize("fault, name, caught_by", [
+    # with no solved layer after the gate, only depthwise_off sees it
+    (depthwise_on_other_channels, "txc.txcp3", {"depthwise_off"}),
+    # exit_sep4_pw's search, rebuilt on the selection the job reports, sees
+    # it too
+    (depthwise_on_other_channels, "txc.txcp", {"depthwise_off", "select_off"}),
+    # counts off: the selections and refits are not judged (inf)
+    (gate_in_place_of_shrink, "txc.txcp",
+     {"counts_off", "select_off", "refit_excess"}),
+])
+def test_each_depthwise_fault_makes_a_run_incorrect(tiny_root, monkeypatch, capsys,
+                                                    fault, name, caught_by):
+    fault(monkeypatch)
+    result = _measure(tiny_root, capsys, name)
+    assert result["correct"] is False
+    failed = {n for n, r in result["checks"].items()
+              if r["value"] is None or r["value"] > r["limit"]}
+    assert failed == caught_by

@@ -1,5 +1,5 @@
-"""The plain reference against the port on the CPU, on the tiny VGG and the
-tiny ResNet: the same forward, the same point plan and the same frozen
+"""The plain reference against the port on the CPU, on the tiny VGG, the
+tiny ResNet and the tiny Xception: the same forward, the same point plan and the same frozen
 ground truth from the same weights and images. The reference's copies of
 the plan and the arithmetic are pinned here, not imported from the port."""
 import numpy as np
@@ -10,7 +10,7 @@ from port_bench import checks, generate, harness, job
 from port_bench.reference import plain
 
 
-@pytest.fixture(params=["tvgg.tcp", "tres.trcp"])
+@pytest.fixture(params=["tvgg.tcp", "tres.trcp", "txc.txcp"])
 def cell(request, tiny_root):
     return harness.load_cell(tiny_root, request.param)
 
@@ -182,10 +182,12 @@ def test_the_running_net_computes_what_the_compressed_model_does(cell):
     rows = checks.layer_rows(out, out_t, sets[0], plan, items, orig, "cpu")
     run_layers, run_params = checks.running_net(
         out, res.params, orig, params_t, items, res.selections, rows, gt, 0.0, "cpu")
-    assert any(l["type"] == "Select" for l in out) == (cell.name == "tres.trcp")
+    assert any(l["type"] == "Select" for l in out) == (cell.name != "tvgg.tcp")
     for it in items:                      # every solved layer reads all channels
         W = run_params[it["consumer"]]["W"]
         assert W.shape[1] == len(res.selections[it["consumer"]])
+        for d in it["depthwise"]:         # and every depthwise conv all of its
+            assert run_params[d]["W"].shape[0] == len(res.selections[it["consumer"]])
     head = cell.config["head"]
     tap = {next(l for l in out if l["name"] == head)["bottoms"][0]: lambda v: v}
     want = plain.run(out, out_t, held, tap)
