@@ -18,7 +18,9 @@ both, and both match it bit for bit. The source is built with nvcc for sm_90a on
 `_build/` and bound through ctypes. `cd_solve_grid` launches K1 or K2 for
 CUDA tensors and takes the plain version only for tensors on the CPU; a
 failed build or launch raises. `LAUNCHES` counts K1's launches and
-`LAUNCHES_STREAM` K2's.
+`LAUNCHES_STREAM` K2's; `LAUNCHES_BOUNDED` counts those of either whose
+instance tests the bounds of its row loads (every width but the 32·M·W of
+the instance the source picks for it).
 """
 from __future__ import annotations
 
@@ -36,6 +38,11 @@ MAX_C = 1024          # K1 (the JAX dispatch's threshold); larger c is K2's
 MAX_C_STREAM = 8192   # K2: 8 warps of 32 chunks
 LAUNCHES = 0
 LAUNCHES_STREAM = 0
+LAUNCHES_BOUNDED = 0
+# The widths whose instance loads rows without bounds tests: c = 32·M·W of
+# the instance that csrc/lasso_cd.cu's entry point picks for c.
+FULL_WIDTHS = {"cp_lasso_cd_grid": (32, 64, 128, 256, 512, 1024),
+               "cp_lasso_cd_grid_stream": (2048, 4096)}
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "lasso_cd.cu"
@@ -192,6 +199,7 @@ def _launch(entry: str, G: torch.Tensor, b: torch.Tensor,
     units from 16-byte aligned addresses: a width that is not a multiple
     of 4 is padded with inert zero rows and columns (a zero diagonal never
     moves). Nothing here reads the card on the host."""
+    global LAUNCHES_BOUNDED
     c, A = G.shape[0], alphas_n.shape[0]
     if c % 4 or G.data_ptr() % 16 or b.data_ptr() % 16:
         cp = c + (-c % 4)
@@ -210,6 +218,8 @@ def _launch(entry: str, G: torch.Tensor, b: torch.Tensor,
     if rc != 0:
         msg = build().cp_cuda_error_string(rc).decode()
         raise RuntimeError(f"{entry} launch failed: {msg} ({rc})")
+    if c not in FULL_WIDTHS[entry]:
+        LAUNCHES_BOUNDED += 1
     return out
 
 

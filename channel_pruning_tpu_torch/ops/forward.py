@@ -8,7 +8,10 @@ alive. Gradients flow only with `train=True`; every other pass (the
 freeze, the solver's replays, eval) runs under no_grad. Train-mode dropout
 draws its masks from a `torch.Generator` (the identity without one, as the
 JAX package is without an rng); `compute_dtype` runs the convs in a lower
-precision with f32 outputs.
+precision with f32 outputs. With tracing on (`utils/trace`), each depthwise
+conv (group equal to its input channels, above 1) runs inside a span
+`forward.depthwise` named after the conv, in the freeze and the replays
+alike.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from channel_pruning_tpu_torch.graph.ir import Graph, Layer, LT, shapes_of
+from channel_pruning_tpu_torch.utils import trace
 
 Params = Mapping[str, Mapping[str, torch.Tensor]]
 
@@ -234,7 +238,12 @@ def compute_layer(l: Layer, env: dict[str, torch.Tensor], params: Params, *,
     if t == LT.CONV:
         p = params[l.name]
         b = p.get("b") if l.attr("bias", True) else None
-        env[top] = _conv2d(x, p["W"], b, l.conv_geometry(), compute_dtype)
+        geo = l.conv_geometry()
+        if geo["group"] > 1 and geo["group"] == x.shape[1]:
+            with trace.span("forward.depthwise", l.name):
+                env[top] = _conv2d(x, p["W"], b, geo, compute_dtype)
+        else:
+            env[top] = _conv2d(x, p["W"], b, geo, compute_dtype)
     elif t == LT.RELU:
         env[top] = torch.relu(x)
     elif t == LT.POOL:

@@ -329,7 +329,9 @@ def apply_pruning(graph: Graph, params: Mapping[str, Mapping[str, np.ndarray]],
     the producer conv's output channels are removed when it feeds only this
     consumer (through channel-preserving layers), a depthwise producer
     chain shrinks through, and otherwise a Select gate goes in front of the
-    consumer."""
+    consumer. Traced, it counts `prune.shrinks` (group-1 producers shrunk)
+    and `prune.gates` (Selects inserted), and the chain `prune.dw_shrinks`
+    and `prune.dw_gates`."""
     g, params = rewrite.prune_conv_inputs(graph, params, consumer,
                                           result.keep, W=result.W, b=result.b)
     bottom = g.layer(consumer).bottoms[0]
@@ -342,10 +344,12 @@ def apply_pruning(graph: Graph, params: Mapping[str, Mapping[str, np.ndarray]],
         depthwise = group > 1 and group == int(g.layer(prod).attr("num_output"))
     if safe:
         g, params = rewrite.prune_conv_outputs(g, params, prod, result.keep)
+        trace.count("prune.shrinks", 1)
     elif depthwise:
         g, params = _shrink_depthwise_chain(g, params, prod, result.keep)
     else:
         g = rewrite.insert_select(g, bottom, consumer, result.keep)
+        trace.count("prune.gates", 1)
     return g, params
 
 
@@ -357,15 +361,19 @@ def _shrink_depthwise_chain(graph: Graph,
     anything else gets a Select gate)."""
     g, params = rewrite.prune_conv_outputs(graph, params, dw, keep)
     g, params = rewrite.set_conv(g, params, dw, group=int(keep.sum()))
+    trace.count("prune.dw_shrinks", 1)
     bottom = g.layer(dw).bottoms[0]
     up = producer_conv(g, bottom, before=dw)
     if up is not None and _sole_consumer_chain(g, up, dw):
         geo = g.layer(up).conv_geometry()
         if geo["group"] == 1:
+            trace.count("prune.shrinks", 1)
             return rewrite.prune_conv_outputs(g, params, up, keep)
         if geo["group"] == int(g.layer(up).attr("num_output")):
             return _shrink_depthwise_chain(g, params, up, keep)
     g = rewrite.insert_select(g, bottom, dw, keep)
+    trace.count("prune.gates", 1)
+    trace.count("prune.dw_gates", 1)
     return g, params
 
 

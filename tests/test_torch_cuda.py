@@ -200,6 +200,26 @@ def test_stream_kernel_equals_k1(card, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,bounded", [(728, 1), (512, 0), (1536, 1),
+                                       (2048, 0)])
+def test_bounded_launches_are_counted(card, c, bounded):
+    """`cd.bounded_launches` counts a launch at a width whose instance
+    tests its row loads' bounds (Xception's 728, K2 at 1536), and none at
+    c = 32·M·W of its instance (512 on K1, 2048 on K2)."""
+    from channel_pruning_tpu_torch.utils import trace
+    gram, alphas = _gate_problem(1, c, card)
+    trace.enable()
+    try:
+        lasso_cd.cd_solve_grid(gram.G, gram.b, alphas, n_sweeps=2)
+        torch.cuda.synchronize()
+        counts = trace.counters()
+    finally:
+        trace.disable()
+    assert counts["cd.k1_launches"] + counts["cd.k2_launches"] == 1
+    assert counts["cd.bounded_launches"] == bounded
+
+
+@pytest.mark.cuda
 def test_cd_kernels_do_not_spill(card):
     """ptxas reports no spill for any instance of K1/K2."""
     lasso_cd.build()

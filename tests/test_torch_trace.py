@@ -6,8 +6,11 @@ the anchor; a traced `solve_prune` on the tiny VGG and ResNet gives each
 solved layer every span of the pass and the same answer bit for bit as an
 untraced one; `cd.sweeps` is the plain CD's sweeps over the live alphas;
 and the traced-run readers of tools/trace_cell.py on hand-built spans and
-operations. Imports only the port."""
+operations; the depthwise convs' spans and the shrink and gate counters
+of a depthwise-separable net, and the widths whose CD launches count as
+bounds-tested. Imports only the port."""
 import importlib.util
+import re
 import time
 from pathlib import Path
 
@@ -19,8 +22,10 @@ from channel_pruning_tpu_torch.convert import params_to_torch
 from channel_pruning_tpu_torch.kernels import lasso_cd
 from channel_pruning_tpu_torch.models.resnet import build_tiny_resnet
 from channel_pruning_tpu_torch.models.vgg import build_tiny_vgg
+from channel_pruning_tpu_torch.models.xception import build_tiny_xception
 from channel_pruning_tpu_torch.ops import lasso
-from channel_pruning_tpu_torch.pipeline import c3
+from channel_pruning_tpu_torch.ops.forward import run_graph
+from channel_pruning_tpu_torch.pipeline import c3, prune
 from channel_pruning_tpu_torch.sampling import sampler
 from channel_pruning_tpu_torch.utils import trace
 from channel_pruning_tpu_torch.utils.config import default_config
@@ -173,8 +178,10 @@ def test_counters_give_the_launches_since_enable(monkeypatch):
     monkeypatch.setattr(lasso_cd, "LAUNCHES", 10)
     trace.enable()
     monkeypatch.setattr(lasso_cd, "LAUNCHES", 17)
+    monkeypatch.setattr(lasso_cd, "LAUNCHES_BOUNDED", 3)
     assert trace.counters()["cd.k1_launches"] == 7
     assert trace.counters()["cd.k2_launches"] == 0
+    assert trace.counters()["cd.bounded_launches"] == 3
 
 
 def test_device_times_on_the_host_clock(fake_card):
@@ -367,3 +374,130 @@ def test_trace_cell_readers_on_hand_built_spans():
     assert rows[1]["pass.advance"] == pytest.approx([1e3, 500])
     assert rows[1]["pass.drain_wait"] == pytest.approx([250, 0])
     assert tool.lead_ms(spans) == pytest.approx([0, 0, 500])
+
+
+@pytest.fixture(scope="module")
+def tiny_xception():
+    g, p = build_tiny_xception(batch=2, image_size=32)
+    return c3.preprocess(g, p)
+
+
+def _depthwise_convs(g):
+    return [c for c in g.convs if g.layer(c).conv_geometry()["group"] > 1]
+
+
+def test_depthwise_convs_run_in_their_own_spans(tiny_xception):
+    """A traced CPU forward of the tiny Xception opens one
+    `forward.depthwise` span a depthwise conv, named after it, in the
+    order the convs run, and none for a group-1 conv; off, none."""
+    g, p = tiny_xception
+    x = {"data": torch.from_numpy(np.random.default_rng(3).normal(
+        0, 1, (2, 3, 32, 32)).astype(np.float32))}
+    dws = _depthwise_convs(g)
+    assert len(dws) == 16 and len(g.convs) > len(dws)     # 2 middle blocks
+    run_graph(g, params_to_torch(p, "cpu"), x)
+    assert trace.records() == []
+    trace.enable()
+    run_graph(g, params_to_torch(p, "cpu"), x)
+    trace.disable()
+    spans = trace.records()
+    assert [s.name for s in spans] == ["forward.depthwise"] * len(dws)
+    assert [s.layer for s in spans] == dws
+    assert all(s.host_s >= 0 for s in spans)
+
+
+def _prune_once(g, p, consumer):
+    """`apply_pruning` on `consumer` keeping every other input channel,
+    traced; the counters it added."""
+    c_in = p[consumer]["W"].shape[1]
+    keep = np.arange(c_in) % 2 == 0
+    W = p[consumer]["W"][:, keep]
+    res = prune.PruneResult(keep=keep, W=W, b=p[consumer]["b"], alpha=0.0,
+                            rmse_before=0.0, rmse_after=0.0)
+    trace.enable()
+    g2, _ = prune.apply_pruning(g, p, consumer, res)
+    trace.disable()
+    return g2, trace.counters()
+
+
+PRUNE_COUNTERS = ("prune.shrinks", "prune.gates", "prune.dw_shrinks",
+                  "prune.dw_gates")
+
+
+@pytest.mark.parametrize("consumer,want", [
+    # its chain starts at a residual sum: the depthwise conv shrinks and a
+    # Select goes in front of it
+    ("mid1_sep1_pw", {"prune.gates": 1, "prune.dw_shrinks": 1,
+                      "prune.dw_gates": 1}),
+    # the chain's top is a pointwise conv: it shrinks with the depthwise one
+    ("mid1_sep2_pw", {"prune.shrinks": 1, "prune.dw_shrinks": 1}),
+    ("exit_sep4_pw", {"prune.shrinks": 1, "prune.dw_shrinks": 1}),
+])
+def test_shrinks_and_gates_are_counted(tiny_xception, consumer, want):
+    g, p = tiny_xception
+    g2, counts = _prune_once(g, p, consumer)
+    assert {k: counts[k] for k in PRUNE_COUNTERS if k in counts} == want
+    dw = consumer[:-3] + "_dw"
+    half = (p[consumer]["W"].shape[1] + 1) // 2
+    assert int(g2.layer(dw).attr("num_output")) == half
+    gates = [l for l in g2.layers if l.type == "Select"]
+    assert len(gates) == want.get("prune.gates", 0)
+    if gates:
+        assert gates[0].tops[0] in g2.layer(dw).bottoms
+
+
+def test_prune_counters_are_off_with_the_tracer(tiny_xception):
+    g, p = tiny_xception
+    _prune_once(g, p, "mid1_sep1_pw")
+    trace.enable()
+    trace.disable()
+    c_in = p["mid1_sep2_pw"]["W"].shape[1]
+    keep = np.ones(c_in, bool)
+    keep[0] = False
+    res = prune.PruneResult(keep=keep, W=p["mid1_sep2_pw"]["W"][:, keep],
+                            b=p["mid1_sep2_pw"]["b"], alpha=0.0,
+                            rmse_before=0.0, rmse_after=0.0)
+    prune.apply_pruning(g, p, "mid1_sep2_pw", res)
+    assert not set(PRUNE_COUNTERS) & set(trace.counters())
+
+
+def test_full_widths_are_the_sources_instances():
+    """The widths `cd.bounded_launches` leaves out are the 32·M·W of the
+    instances each entry point of csrc/lasso_cd.cu dispatches to."""
+    src = (REPO / "channel_pruning_tpu_torch" / "csrc" / "lasso_cd.cu").read_text()
+    for entry, widths in lasso_cd.FULL_WIDTHS.items():
+        body = src[src.index(f"int {entry}("):]
+        body = body[:body.index("\n}\n")]
+        inst = re.findall(r"launch_for<(\d+), (\d+), \d+>", body)
+        assert inst, entry
+        assert tuple(32 * int(m) * int(w) for m, w in inst) == widths
+
+
+def test_trace_cell_launch_and_prune_readings():
+    tool = _tool()
+    counts = {"cd.k1_launches": 270, "cd.k2_launches": 10,
+              "cd.bounded_launches": 224, "prune.shrinks": 60,
+              "prune.gates": 30, "prune.dw_shrinks": 68, "prune.dw_gates": 26}
+    got = tool.launch_readings(counts, 2)
+    assert got == {"cd_bounded_share": pytest.approx(0.8), "shrinks": 30,
+                   "gates": 15, "dw_shrinks": 34, "dw_gates": 13}
+    empty = tool.launch_readings({}, 3)
+    assert empty["cd_bounded_share"] is None and empty["gates"] == 0
+
+
+def test_trace_cell_kernel_alignment():
+    """Kernels that run 0.3 ms after their spans' recorded extents: half
+    their time inside as recorded, all of it at the shift found."""
+    tool = _tool()
+    spans = [_span("forward.depthwise", 0, t, t + 0.1, t, t + 6e-4, "dw")
+             for t in (1.0, 2.0, 3.0)]
+    ops = [("conv_depthwise2d_forward_kernel", t + 3e-4, t + 9e-4)
+           for t in (1.0, 2.0, 3.0)] + [("implicit_gemm", 1.5, 1.6)]
+    got = tool.kernel_alignment(spans, "forward.depthwise", ops,
+                                "conv_depthwise2d")
+    assert got["share"] == pytest.approx(0.5)
+    assert got["best_shift_ms"] == pytest.approx(0.3)
+    assert got["share_at_best"] == pytest.approx(1.0)
+    assert got["kernels"] == 3
+    assert tool.kernel_alignment(spans, "forward.depthwise", ops[3:],
+                                 "conv_depthwise2d") is None

@@ -8,8 +8,9 @@ It sets the cell up as `port_bench/run.py` does (the same program, inputs,
 pool and warm jobs) and runs four windows of back-to-back jobs, each under
 the benchmark's device trace (`port_bench/devtrace.Recorder`): traced,
 untraced, untraced, traced, where "traced" turns the port's tracing on.
-Each window prints one JSON line with its `job_s`, `idle_pct` and `cd_ms`
-as the benchmark reads them; a traced window adds, a job each:
+Each window prints one JSON line with its `job_s`, `idle_pct`, `cd_ms`
+and `dwconv_ms` as the benchmark reads them; a traced window adds, a job
+each:
 
   replay_ms      device busy in `pass.advance` (frontier replay, gathers)
   search_ms      device busy in `solve.search` (K1/K2 and the search's ops)
@@ -18,6 +19,18 @@ as the benchmark reads them; a traced window adds, a job each:
   cd_sweeps      `cd.sweeps` / `cd.live_alphas` over the window
   cd_moves       `cd.moves` / `cd.sweeps`: nonzero-delta steps a sweep of
                  a live alpha, over the window
+  dw_ms          device busy in `forward.depthwise` (the depthwise convs
+                 of the freeze and the replays)
+  cd_bounded_share  `cd.bounded_launches` over K1's and K2's launches: the
+                 share run on an instance with bounds-tested row loads
+  shrinks, gates, dw_shrinks, dw_gates
+                 the `prune.*` counters a job: group-1 producers shrunk,
+                 Selects inserted, depthwise convs shrunk, Selects in
+                 front of a depthwise conv
+  dw_alignment   the share of the `conv_depthwise2d` kernels' time inside
+                 the `forward.depthwise` spans' device extents, as recorded
+                 and at the shift of the extents that holds most: a check
+                 of the two clocks on spans of a fraction of a millisecond
 
 "Device busy" is the union of the trace's operations clipped to the
 spans' device extents. It also checks the shared clock (device starts
@@ -45,7 +58,8 @@ PASS = ("pass.upload", "pass.advance", "pass.target", "pass.solve",
         "pass.to_host", "pass.drain_wait", "pass.bookkeep")
 SPLIT = ("freeze.upload", "freeze.forward", "freeze.to_host", "pass.upload",
          "pass.advance", "pass.target", "solve.gram", "solve.search",
-         "solve.fit", "pass.to_host")
+         "solve.fit", "pass.to_host", "forward.depthwise")
+PRUNE_COUNTERS = ("shrinks", "gates", "dw_shrinks", "dw_gates")
 CLOCK_SLACK = 1e-4          # seconds: the events' launch latency
 
 
@@ -150,6 +164,39 @@ def job_split(spans, ops, jobs, job_seconds) -> list[dict]:
     return rows
 
 
+def kernel_alignment(spans, name: str, ops, kernel: str,
+                     max_shift: float = 2e-3, step: float = 2e-5) -> dict | None:
+    """The share of the device time of the kernels whose names hold
+    `kernel` that lies inside the device extents of the spans called
+    `name`: as recorded, and at the shift of the extents (within
+    +-`max_shift` seconds) that holds the most."""
+    ext = extents(spans, (name,))
+    kern = [(s, e) for n, s, e in ops if kernel in n]
+    busy = merged(kern)
+    total = sum(e - s for s, e in busy)
+    if not ext or total <= 0:
+        return None
+
+    def share(d: float) -> float:
+        return overlap_seconds(busy, [(s + d, e + d) for s, e in ext]) / total
+
+    n = int(round(max_shift / step))
+    best = max((k * step for k in range(-n, n + 1)), key=share)
+    return {"share": share(0.0), "best_shift_ms": 1e3 * best,
+            "share_at_best": share(best), "kernels": len(kern)}
+
+
+def launch_readings(counts, n_jobs: int) -> dict:
+    """`cd_bounded_share` over the window, and each `prune.*` counter a
+    job."""
+    launches = counts.get("cd.k1_launches", 0) + counts.get("cd.k2_launches", 0)
+    out = {"cd_bounded_share": (counts.get("cd.bounded_launches", 0) / launches
+                                if launches else None)}
+    for name in PRUNE_COUNTERS:
+        out[name] = counts.get(f"prune.{name}", 0) / n_jobs
+    return out
+
+
 def lead_ms(spans) -> list[float]:
     """The least, 1st percentile and median of device start less host
     start, in ms."""
@@ -215,6 +262,7 @@ def windows(root: Path, workload: str, seed: int, seconds: float, device,
                "job_s": (t1 - t0) / n,
                "idle_pct": 100.0 * (1 - dt.busy_seconds() / (t1 - t0)),
                "cd_ms": 1e3 * dt.seconds_of("lasso_cd") / n,
+               "dwconv_ms": 1e3 * dt.seconds_of("conv_depthwise2d") / n,
                "clocks": clocks}
         if traced:
             spans, counts = rc
@@ -228,6 +276,10 @@ def windows(root: Path, workload: str, seed: int, seconds: float, device,
                            / max(counts.get("cd.live_alphas", 0), 1)),
                 cd_moves=(counts.get("cd.moves", 0)
                           / max(counts.get("cd.sweeps", 0), 1)),
+                dw_ms=busy_ms(spans, ("forward.depthwise",), dt.ops, n),
+                dw_alignment=kernel_alignment(spans, "forward.depthwise",
+                                              dt.ops, "conv_depthwise2d"),
+                **launch_readings(counts, n),
                 counters=counts, spans=len(spans),
                 clock=clock_checks(spans, hspans.items, jobs),
                 lead_ms=lead_ms(spans),
