@@ -7,20 +7,21 @@ Two kernels in csrc/lasso_cd.cu, one block per alpha, with one contract:
   (c <= MAX_C);
 * K2 replaces ...::cd_solve_grid_pallas_hbm (MAX_C < c <= MAX_C_STREAM).
 
-Both run each alpha's coordinate chain in a warp, skip runs of zero-delta
-coordinates exactly (a ballot over a window of 32 coordinates finds the
-first that moves), and keep q in registers, spread over warps that run
-the same chain (K1 1-16 warps of 1-2 chunks, K2 8-16 warps of 8-32). The
-soft threshold's division is an f64 product with the diagonal's
-reciprocal, which rounds to the same float as the division. Their
-contract is the same, so `cd_solve_grid_plain` is the plain version of
-both, and both match it bit for bit. The source is built with nvcc for sm_90a on first use into
-`_build/` and bound through ctypes. `cd_solve_grid` launches K1 or K2 for
-CUDA tensors and takes the plain version only for tensors on the CPU; a
-failed build or launch raises. `LAUNCHES` counts K1's launches and
-`LAUNCHES_STREAM` K2's; `LAUNCHES_BOUNDED` counts those of either whose
-instance tests the bounds of its row loads (every width but the 32·M·W of
-the instance the source picks for it).
+Both run each alpha's coordinate chain in one warp, skip runs of
+zero-delta coordinates exactly (a ballot over a window of 32 coordinates
+finds the first that moves), and feed the moves through a queue in shared
+memory to update warps that hold q in registers: every instance is split
+so. The soft threshold's division is an f64 product with the diagonal's reciprocal,
+which rounds to the same float as the division. Their contract is the
+same, so `cd_solve_grid_plain` is the plain version of both, and both
+match it bit for bit. The source is built with nvcc for sm_90a on first
+use into `_build/` and bound through ctypes. `cd_solve_grid` launches K1
+or K2 for CUDA tensors and takes the plain version only for tensors on the
+CPU; a failed build or launch raises. `LAUNCHES` counts K1's launches and
+`LAUNCHES_STREAM` K2's; `LAUNCHES_SPLIT` those of either on a split
+instance, which every width takes. With tracing on (utils/trace), the
+blocks add the steps at whose start the chain warp waited for room in its
+move queue to a counter on the card, read by `queue_stalls()`.
 """
 from __future__ import annotations
 
@@ -34,15 +35,14 @@ from pathlib import Path
 
 import torch
 
+from channel_pruning_tpu_torch.utils import trace
+
 MAX_C = 1024          # K1 (the JAX dispatch's threshold); larger c is K2's
-MAX_C_STREAM = 8192   # K2: 8 warps of 32 chunks
+MAX_C_STREAM = 8192   # K2
 LAUNCHES = 0
 LAUNCHES_STREAM = 0
-LAUNCHES_BOUNDED = 0
-# The widths whose instance loads rows without bounds tests: c = 32·M·W of
-# the instance that csrc/lasso_cd.cu's entry point picks for c.
-FULL_WIDTHS = {"cp_lasso_cd_grid": (32, 64, 128, 256, 512, 1024),
-               "cp_lasso_cd_grid_stream": (2048, 4096)}
+LAUNCHES_SPLIT = 0
+_STALLS: dict = {}    # device -> the blocks' stall counter (int64)
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "lasso_cd.cu"
@@ -139,11 +139,12 @@ def compile_source(source: Path) -> ctypes.CDLL:
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the argument and result types of a build's C entry points."""
+    """Set the argument and result types of a build's C entry points (the
+    stall counter last: a build without it ignores the pointer)."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name in ("cp_lasso_cd_grid", "cp_lasso_cd_grid_stream"):
         fn = getattr(lib, name)
-        fn.argtypes = [ptr] * 5 + [i32, i32, i32, ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 5 + [i32, i32, i32, ctypes.c_float, ptr, ptr]
         fn.restype = ctypes.c_int
     lib.cp_cuda_error_string.argtypes = [ctypes.c_int]
     lib.cp_cuda_error_string.restype = ctypes.c_char_p
@@ -191,6 +192,21 @@ def _check_stats(stats: torch.Tensor | None, G: torch.Tensor, A: int) -> None:
                          f"on {G.device}")
 
 
+def _stall_counter(device: torch.device) -> torch.Tensor:
+    if device not in _STALLS:
+        _STALLS[device] = torch.zeros(1, dtype=torch.int64, device=device)
+    return _STALLS[device]
+
+
+def queue_stalls() -> int:
+    """The steps at whose start a block's chain warp waited for room in
+    its move queue, over the launches made with tracing on (a host read of
+    the card's counters: call it after the work). The chain checks for room
+    only there, for a whole step, so this is also the moves (or empty
+    steps) at which it waited."""
+    return sum(int(t.item()) for t in _STALLS.values())
+
+
 def _launch(entry: str, G: torch.Tensor, b: torch.Tensor,
             alphas_n: torch.Tensor, n_sweeps: int, tol: float,
             stats: torch.Tensor | None = None) -> torch.Tensor:
@@ -199,7 +215,7 @@ def _launch(entry: str, G: torch.Tensor, b: torch.Tensor,
     units from 16-byte aligned addresses: a width that is not a multiple
     of 4 is padded with inert zero rows and columns (a zero diagonal never
     moves). Nothing here reads the card on the host."""
-    global LAUNCHES_BOUNDED
+    global LAUNCHES_SPLIT
     c, A = G.shape[0], alphas_n.shape[0]
     if c % 4 or G.data_ptr() % 16 or b.data_ptr() % 16:
         cp = c + (-c % 4)
@@ -212,14 +228,14 @@ def _launch(entry: str, G: torch.Tensor, b: torch.Tensor,
     fn = getattr(build(), entry)
     ptrs = [G.data_ptr(), b.data_ptr(), alphas_n.data_ptr(), out.data_ptr(),
             stats.data_ptr() if stats is not None else None]
+    stalls = _stall_counter(G.device).data_ptr() if trace.enabled() else None
     with torch.cuda.device(G.device):
         stream = torch.cuda.current_stream(G.device).cuda_stream
-        rc = fn(*ptrs, c, A, int(n_sweeps), float(tol), stream)
+        rc = fn(*ptrs, c, A, int(n_sweeps), float(tol), stream, stalls)
     if rc != 0:
         msg = build().cp_cuda_error_string(rc).decode()
         raise RuntimeError(f"{entry} launch failed: {msg} ({rc})")
-    if c not in FULL_WIDTHS[entry]:
-        LAUNCHES_BOUNDED += 1
+    LAUNCHES_SPLIT += 1
     return out
 
 
@@ -228,7 +244,7 @@ def _checked(G, b, alphas_n, n_sweeps, stats, max_c: int) -> int:
     if c > max_c:
         raise ValueError(
             f"c={c} > {max_c}: K1 takes c <= {MAX_C}; K2 takes "
-            f"c <= {MAX_C_STREAM} (8 warps of 32 chunks)")
+            f"c <= {MAX_C_STREAM}")
     _check_stats(stats, G, alphas_n.shape[0])
     return c
 

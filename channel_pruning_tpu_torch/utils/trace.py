@@ -25,8 +25,10 @@ names appear in any profiler trace. Spans open and close on one thread.
 
 `counters()` gives the host counters added since `enable`, and the CD
 kernels' launch counters (`kernels/lasso_cd.LAUNCHES`, `LAUNCHES_STREAM`,
-`LAUNCHES_BOUNDED`, `kernels/group_cd.LAUNCHES`, which stay where they
-are) as their increase since `enable`.
+`LAUNCHES_SPLIT`, `kernels/group_cd.LAUNCHES`, which stay where they
+are) and the CD kernels' queue stalls, counted on the
+card while tracing is on (`lasso_cd.queue_stalls()`, a host read), as
+their increase since `enable`.
 """
 from __future__ import annotations
 
@@ -65,7 +67,8 @@ def _launches() -> dict[str, int]:
     from channel_pruning_tpu_torch.kernels import group_cd, lasso_cd
     return {"cd.k1_launches": lasso_cd.LAUNCHES,
             "cd.k2_launches": lasso_cd.LAUNCHES_STREAM,
-            "cd.bounded_launches": lasso_cd.LAUNCHES_BOUNDED,
+            "cd.split_launches": lasso_cd.LAUNCHES_SPLIT,
+            "cd.queue_stalls": lasso_cd.queue_stalls(),
             "cd.k3_launches": group_cd.LAUNCHES}
 
 

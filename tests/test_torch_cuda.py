@@ -5,6 +5,7 @@ jax is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -54,13 +55,13 @@ def test_cd_kernel_matches_plain_version(card, c):
     np.testing.assert_array_equal(stats.cpu().numpy(), stats_ref.cpu().numpy())
 
 
-# every template boundary of K1 (1-16 warps of 1-2 chunks) and K2 (8 or
-# 16 warps of 8 chunks, 8 of 32 above c = 4096), on both sides (c = 32·M·W
-# takes the instance without bounds tests); the plain version's time on
-# the card grows with c x sweeps (about 25 s at c = 512 and 200 sweeps),
-# so K2's widest widths run fewer sweeps
-K1_WIDTHS = [1, 31, 32, 33, 64, 65, 128, 129, 256, 257, 512, 513, 1024]
-K2_WIDTHS = [1025, 2048, 2049, 4096, 4097, 8192]
+# every instance boundary of K1 and K2 on both sides (one chunk, which
+# the smallest split instance serves, and each split class), and widths that are no 32·M·W (Xception's 728, 1000, 1536, 4100, 6144); the
+# plain version's time on the card grows with c x sweeps (about 25 s at
+# c = 512 and 200 sweeps), so K2's widest widths run fewer sweeps
+K1_WIDTHS = [1, 31, 32, 33, 64, 65, 128, 129, 256, 257, 512, 513, 1024,
+             728, 1000]
+K2_WIDTHS = [1025, 2048, 2049, 4096, 4097, 8192, 1536, 4100, 6144]
 
 
 def _boundary_grid(c, device):
@@ -183,11 +184,11 @@ def test_stream_kernel_matches_plain_version_at_c2048(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [512, 513, 640, 1000, 1024])
+@pytest.mark.parametrize("c", [512, 513, 640, 1000, 1024, 728, 768])
 def test_stream_kernel_equals_k1(card, c):
-    """K2 forced at 512 <= c <= 1024, where the dispatch takes K1 (8 or 16
-    warps of 2 chunks, against K2's 8 warps of 8): the same betas and stats
-    bit for bit over the full 200 sweeps."""
+    """K2 forced at 512 <= c <= 1024, where the dispatch takes K1 (another
+    split instance: fewer update warps of fewer chunks): the same betas and
+    stats bit for bit over the full 200 sweeps."""
     gram, alphas = _gate_problem(1, c, card)
     st1 = torch.zeros((alphas.shape[0], 2), dtype=torch.int32, device=card)
     st2 = torch.zeros_like(st1)
@@ -200,32 +201,51 @@ def test_stream_kernel_equals_k1(card, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,bounded", [(728, 1), (512, 0), (1536, 1),
-                                       (2048, 0)])
-def test_bounded_launches_are_counted(card, c, bounded):
-    """`cd.bounded_launches` counts a launch at a width whose instance
-    tests its row loads' bounds (Xception's 728, K2 at 1536), and none at
-    c = 32·M·W of its instance (512 on K1, 2048 on K2)."""
+@pytest.mark.parametrize("c", [28, 32, 33, 512, 728, 1536, 2048, 4096, 8192])
+def test_split_launches_and_queue_stalls_are_counted(card, c):
+    """With tracing on, `cd.split_launches` counts every K1/K2 launch (every
+    instance is split, one chunk included) and `cd.queue_stalls` reads the
+    card's stall counter: the steps at whose start the chain warp waited
+    for room in its move queue, so at most one a step (sweeps x chunks of
+    each alpha, from the stats), and some at c = 8192, where the update
+    warps' row loads (32 KB a move) fall behind the chain's dense sweeps;
+    with tracing off no counter moves."""
     from channel_pruning_tpu_torch.utils import trace
     gram, alphas = _gate_problem(1, c, card)
+    stats = torch.zeros((alphas.shape[0], 2), dtype=torch.int32, device=card)
+    before = (lasso_cd.LAUNCHES_SPLIT, lasso_cd.queue_stalls())
+    lasso_cd.cd_solve_grid(gram.G, gram.b, alphas, n_sweeps=200)
+    torch.cuda.synchronize()
+    assert lasso_cd.queue_stalls() == before[1]          # off: no stall count
     trace.enable()
     try:
-        lasso_cd.cd_solve_grid(gram.G, gram.b, alphas, n_sweeps=2)
+        lasso_cd.cd_solve_grid(gram.G, gram.b, alphas, n_sweeps=200,
+                               stats=stats)
         torch.cuda.synchronize()
         counts = trace.counters()
     finally:
         trace.disable()
+    steps = int(stats[:, 0].sum()) * -(-c // 32)
     assert counts["cd.k1_launches"] + counts["cd.k2_launches"] == 1
-    assert counts["cd.bounded_launches"] == bounded
+    assert counts["cd.split_launches"] == 1
+    assert lasso_cd.LAUNCHES_SPLIT == before[0] + 2
+    assert 0 <= counts["cd.queue_stalls"] <= steps
+    if c == 8192:
+        assert counts["cd.queue_stalls"] > 0
 
 
 @pytest.mark.cuda
 def test_cd_kernels_do_not_spill(card):
-    """ptxas reports no spill for any instance of K1/K2."""
+    """ptxas reports no spill for any instance of K1/K2: one spill line for
+    each kernel the build compiled, one kernel for each instance the
+    dispatch of csrc/lasso_cd.cu launches, all of them with no spill."""
     lasso_cd.build()
     report = lasso_cd.ptxas_report()
     lines = [l for l in report.splitlines() if "spill" in l]
-    assert len(lines) >= 7, report
+    entries = report.count("Compiling entry function")
+    instances = set(re.findall(r"launch_split<([^>]*)>",
+                               lasso_cd.SOURCE.read_text()))
+    assert len(lines) == entries == len(instances) >= 6, report
     assert all("0 bytes spill stores, 0 bytes spill loads" in l
                for l in lines), report
 

@@ -126,30 +126,48 @@ def _kernel_candidate(bk, qk, dkb, dk, alpha):
     return _f64_quotient(num, np.where(live, dk, f32(1)))
 
 
-def _skip_ahead_grid(G, b, alphas_n, n_sweeps=200, tol=1e-8, lanes=32, ring=4):
+def _skip_ahead_grid(G, b, alphas_n, n_sweeps=200, tol=1e-8, lanes=32, ring=4,
+                     queue=None):
     """A numpy model of the kernels' exact skip-ahead (csrc/lasso_cd.cu), one
     alpha at a time: each sweep walks chunks of `lanes` columns; in a chunk
     every lane from the window start s computes its candidate beta from the
     current q with the kernels' arithmetic (`_kernel_candidate`, d·beta taken
     at the chunk's start), the first lane f with delta != 0 moves, lanes
     s..f commit, and the window restarts at f + 1; a window with no mover
-    commits all its lanes. The mover's row updates this chunk's q at once
-    and every other chunk's through a ring of `ring` deferred rows (the
-    kernels' kRing is 4): the oldest is applied when the ring is full, all
-    of them in order when the chunk ends.
+    commits all its lanes. The mover's row updates this chunk's q at once.
+    The replicated form (`queue` None: every warp runs the chain and
+    updates its own chunks between two of its steps) updates every other
+    chunk's q through a ring of `ring` deferred rows: the oldest is applied
+    when the ring is full, all of them in order when the chunk ends. The
+    split form takes the moves into a queue of depth
+    `queue` that outlives the chunk: each other chunk applies them in
+    order, at any lag up to `queue` moves (the split kernels' update warps),
+    and a chunk's q catches up when it becomes the window.
     Returns (betas, [sweeps, nonzero steps])."""
     f32 = np.float32
     c = b.shape[0]
     diag = np.diag(G).copy()
     out = np.zeros((alphas_n.shape[0], c), f32)
     stats = np.zeros((alphas_n.shape[0], 2), np.int32)
+    starts = list(range(0, c, lanes))
+    cols = [np.arange(base, min(base + lanes, c)) for base in starts]
     for a, alpha in enumerate(alphas_n):
         beta, q = np.zeros(c, f32), np.zeros(c, f32)
+        log, applied = [], [0] * len(starts)    # the split form's queue
+
+        def catch_up(j, upto):
+            while applied[j] < upto:
+                row, dj = log[applied[j]]
+                q[cols[j]] = q[cols[j]] + G[row, cols[j]] * dj
+                applied[j] += 1
+
         sweeps = moves = 0
         while True:
             max_delta = f32(0)
-            for base in range(0, c, lanes):
-                k = np.arange(base, min(base + lanes, c))
+            for ci, base in enumerate(starts):
+                k = cols[ci]
+                if queue is not None:
+                    catch_up(ci, len(log))
                 d = diag[k]
                 dkb = d * beta[k]
                 others = np.ones(c, bool)
@@ -168,12 +186,18 @@ def _skip_ahead_grid(G, b, alphas_n, n_sweeps=200, tol=1e-8, lanes=32, ring=4):
                     beta[k[s:f + 1]] = bj[s:f + 1]
                     max_delta = max(max_delta, abs(delta[f]))
                     q[k] = q[k] + G[k[f], k] * delta[f]
-                    if len(pending) == ring:
-                        j, dj = pending.pop(0)
-                        q[others] = q[others] + G[j, others] * dj
-                    pending.append((k[f], delta[f]))
                     moves += 1
                     s = f + 1
+                    if queue is not None:
+                        log.append((k[f], delta[f]))
+                        applied[ci] = len(log)
+                        for j in range(len(starts)):
+                            catch_up(j, len(log) - queue)
+                    else:
+                        if len(pending) == ring:
+                            j, dj = pending.pop(0)
+                            q[others] = q[others] + G[j, others] * dj
+                        pending.append((k[f], delta[f]))
                     if s == k.size:
                         break
                 for j, dj in pending:
@@ -189,12 +213,20 @@ def _skip_ahead_grid(G, b, alphas_n, n_sweeps=200, tol=1e-8, lanes=32, ring=4):
 @pytest.mark.parametrize("c,zero_diag,ring", [(5, (), 8), (37, (3, 36), 2),
                                               (64, (0, 31, 32), 8),
                                               (130, (7, 64, 129), 4),
-                                              (200, (5, 192, 199), 4)])
+                                              (200, (5, 192, 199), 4),
+                                              (37, (3, 36), "queue1"),
+                                              (130, (7, 64, 129), "queue8"),
+                                              (200, (5, 192, 199), "queue32"),
+                                              (20, (3, 19), "queue128")])
 def test_skip_ahead_model_equals_plain_bit_for_bit(c, zero_diag, ring):
     """The kernels' window skip-ahead and deferred row updates change no
     value: the numpy model above equals cd_solve_grid_plain bit for bit,
     betas and stats, with some coordinates inert (zero diagonal) and alphas
-    from nearly all to no coordinates moving."""
+    from nearly all to no coordinates moving; replicated (a ring of 2-8
+    rows) and split ("queueN": a move queue of depth 1, 8 or 32, and the
+    kernels' 128 at one chunk, c <= 32, which the split kernel serves
+    too)."""
+    queue = int(ring[5:]) if isinstance(ring, str) else None
     G, b, N = _sparse_gram(10 + c, 6 * c, c, max(2, c // 4))
     for j in zero_diag:
         G[j, :] = 0.0
@@ -204,7 +236,8 @@ def test_skip_ahead_model_equals_plain_bit_for_bit(c, zero_diag, ring):
     want = lasso_cd.cd_solve_grid_plain(torch.from_numpy(G), torch.from_numpy(b),
                                         torch.from_numpy(alphas), n_sweeps=60,
                                         stats=stats).numpy()
-    got, got_stats = _skip_ahead_grid(G, b, alphas, n_sweeps=60, ring=ring)
+    got, got_stats = _skip_ahead_grid(G, b, alphas, n_sweeps=60,
+                                      ring=4 if queue else ring, queue=queue)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got_stats, stats.numpy())
     assert np.all(got[:, list(zero_diag)] == 0)

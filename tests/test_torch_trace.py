@@ -178,10 +178,12 @@ def test_counters_give_the_launches_since_enable(monkeypatch):
     monkeypatch.setattr(lasso_cd, "LAUNCHES", 10)
     trace.enable()
     monkeypatch.setattr(lasso_cd, "LAUNCHES", 17)
-    monkeypatch.setattr(lasso_cd, "LAUNCHES_BOUNDED", 3)
+    monkeypatch.setattr(lasso_cd, "LAUNCHES_SPLIT", 5)
+    monkeypatch.setattr(lasso_cd, "queue_stalls", lambda: 2)
     assert trace.counters()["cd.k1_launches"] == 7
     assert trace.counters()["cd.k2_launches"] == 0
-    assert trace.counters()["cd.bounded_launches"] == 3
+    assert trace.counters()["cd.split_launches"] == 5
+    assert trace.counters()["cd.queue_stalls"] == 2
 
 
 def test_device_times_on_the_host_clock(fake_card):
@@ -461,28 +463,50 @@ def test_prune_counters_are_off_with_the_tracer(tiny_xception):
     assert not set(PRUNE_COUNTERS) & set(trace.counters())
 
 
-def test_full_widths_are_the_sources_instances():
-    """The widths `cd.bounded_launches` leaves out are the 32·M·W of the
-    instances each entry point of csrc/lasso_cd.cu dispatches to."""
+def _dispatch(entry: str) -> list[tuple[int | None, str, tuple[int, ...]]]:
+    """(chunk bound or None for the last `else`, launcher, template
+    arguments) of each branch of an entry point of csrc/lasso_cd.cu."""
     src = (REPO / "channel_pruning_tpu_torch" / "csrc" / "lasso_cd.cu").read_text()
-    for entry, widths in lasso_cd.FULL_WIDTHS.items():
-        body = src[src.index(f"int {entry}("):]
-        body = body[:body.index("\n}\n")]
-        inst = re.findall(r"launch_for<(\d+), (\d+), \d+>", body)
-        assert inst, entry
-        assert tuple(32 * int(m) * int(w) for m, w in inst) == widths
+    body = src[src.index(f"int {entry}("):]
+    body = body[:body.index("\n}\n")]
+    return [(int(bound) if bound else None, kind,
+             tuple(int(a) for a in re.findall(r"\d+", args)))
+            for bound, kind, args in re.findall(
+                r"(?:if \(chunks <= (\d+)\)|else)\s*err = launch_(\w+)<([^>]*)>",
+                body)]
+
+
+def test_split_instances_are_the_sources_dispatch():
+    """`cd.split_launches` counts every K1/K2 launch because every branch
+    of each entry point's dispatch in csrc/lasso_cd.cu launches a split
+    instance, from one chunk up, and each instance is wide enough for its
+    class: 32·M·(update warps) covers the branch's chunks, the last branch
+    the entry's largest c."""
+    for entry, top in (("cp_lasso_cd_grid", lasso_cd.MAX_C),
+                       ("cp_lasso_cd_grid_stream", lasso_cd.MAX_C_STREAM)):
+        branches = _dispatch(entry)
+        assert branches and branches[-1][0] is None, entry
+        assert [bound for bound, _, _ in branches[:-1]] == sorted(
+            bound for bound, _, _ in branches[:-1]), entry
+        for bound, kind, (m, nw, _r, _s) in branches:
+            assert kind == "split", (entry, bound)
+            chunks = bound if bound is not None else top // 32
+            assert m * (nw - nw // 4) >= chunks, (entry, bound)
 
 
 def test_trace_cell_launch_and_prune_readings():
     tool = _tool()
     counts = {"cd.k1_launches": 270, "cd.k2_launches": 10,
-              "cd.bounded_launches": 224, "prune.shrinks": 60,
+              "cd.split_launches": 56,
+              "cd.moves": 4000, "cd.queue_stalls": 12, "prune.shrinks": 60,
               "prune.gates": 30, "prune.dw_shrinks": 68, "prune.dw_gates": 26}
     got = tool.launch_readings(counts, 2)
-    assert got == {"cd_bounded_share": pytest.approx(0.8), "shrinks": 30,
+    assert got == {"cd_split_share": pytest.approx(0.2),
+                   "cd_stalls_per_move": pytest.approx(0.003), "shrinks": 30,
                    "gates": 15, "dw_shrinks": 34, "dw_gates": 13}
     empty = tool.launch_readings({}, 3)
-    assert empty["cd_bounded_share"] is None and empty["gates"] == 0
+    assert empty["cd_split_share"] is None and empty["gates"] == 0
+    assert empty["cd_stalls_per_move"] is None
 
 
 def test_trace_cell_kernel_alignment():

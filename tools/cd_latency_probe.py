@@ -13,7 +13,10 @@ held in registers against one held in shared memory (read-modify-write);
 then the candidate step as K1/K2 now compute it (the division an f64
 product with the diagonal's reciprocal), that product alone, the first
 candidate with every numerator 0, and the window step with the new
-candidate, its first mover found by ballot + ffs or by redux.min.
+candidate, its first mover found by ballot + ffs or by redux.min; last the
+split kernels' chain step: that window step with the move published into
+the shared-memory queue (one tagged 64-bit store, the queue's fill read
+every 32 moves), alone and with a named barrier's or an mbarrier's arrive.
 Prints cycles per step at c = 512 and c = 2048, and the card's clock;
 `--sass DIR` also writes the probe's SASS there (cuobjdump).
 """
@@ -206,9 +209,46 @@ __global__ void probe(const float* __restrict__ G, float* sink,
     qr2 = __fadd_rn(qr2, __fmul_rn(blk[f * 32 + lane], __fmul_rn(d, 1e-30f)));
   }
   t1 = clock64(); out[14] = (t1 - t0) / n;
+  // the split kernels' chain warp: the window step, then the move published
+  // into the shared-memory queue (lane 0's one tagged 64-bit store), the
+  // queue's fill read back every 32 moves; alone, then with a named
+  // barrier's arrive or an mbarrier's arrive after the store
+  unsigned long long* slots = reinterpret_cast<unsigned long long*>(ring);
+  volatile int* done = reinterpret_cast<volatile int*>(ring + 256);
+  done[lane] = 0x3fffffff;
+  __syncwarp();
+  float qp[3] = {q, q, q};
+#pragma unroll
+  for (int var = 0; var < 3; ++var) {
+    int lim = 0;
+    t0 = clock64();
+    for (int it = 0; it < n; ++it) {
+      const float bj = candidate_rcp(bk, qp[var], dk, rinv, beta, 0.1f);
+      const float delta = __fsub_rn(bj, beta);
+      const unsigned m = __ballot_sync(0xffffffffu, delta != 0.0f) | 1u;
+      const int f = __ffs(m) - 1;
+      const float d = __shfl_sync(0xffffffffu, delta, f);
+      qp[var] = __fadd_rn(qp[var],
+                          __fmul_rn(blk[f * 32 + lane], __fmul_rn(d, 1e-30f)));
+      if (it >= lim)
+        lim = min(__reduce_min_sync(0xffffffffu, done[lane]), it) + 32;
+      const unsigned long long e =
+          (static_cast<unsigned long long>(__float_as_uint(d)) << 32) |
+          (static_cast<unsigned>(it & 0x3ffff) << 14) | static_cast<unsigned>(f);
+      if (lane == 0)
+        asm volatile("st.volatile.shared.u64 [%0], %1;\n" ::"r"(
+                         saddr(slots + (it & 63))), "l"(e) : "memory");
+      if (var == 1) asm volatile("bar.arrive 1, 32;\n" ::: "memory");
+      if (var == 2 && lane == 0)
+        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                     :: "r"(saddr(bar + 7)) : "memory");
+    }
+    t1 = clock64(); out[15 + var] = (t1 - t0) / n;
+  }
   float acc = 0.0f;
   for (int t = 0; t < 16; ++t) acc += qr[t];
-  sink[lane] = q + x + v + idx + j + acc + qs[lane] + qn + y + qz + qw + qr2;
+  sink[lane] = q + x + v + idx + j + acc + qs[lane] + qn + y + qz + qw + qr2 +
+               qp[0] + qp[1] + qp[2];
 }
 
 extern "C" int run(const float* G, float* sink, long long* out, int n,
@@ -227,7 +267,10 @@ NAMES = ["candidate step", "division", "ballot+ffs+shfl", "shared load",
          "row update, q in shared memory (a column)",
          "candidate step, f64 reciprocal", "f64 reciprocal product alone",
          "candidate step, numerator 0", "window step, f64 reciprocal",
-         "window step, f64 reciprocal, redux.min first mover"]
+         "window step, f64 reciprocal, redux.min first mover",
+         "chain step + queue publish (tagged 64-bit store)",
+         "chain step + queue publish + bar.arrive",
+         "chain step + queue publish + mbarrier.arrive"]
 
 
 def dump_sass(so: Path, dst: Path) -> None:

@@ -21,8 +21,13 @@ each:
                  a live alpha, over the window
   dw_ms          device busy in `forward.depthwise` (the depthwise convs
                  of the freeze and the replays)
-  cd_bounded_share  `cd.bounded_launches` over K1's and K2's launches: the
-                 share run on an instance with bounds-tested row loads
+  cd_split_share `cd.split_launches` over K1's and K2's launches: the share
+                 run on a split instance (one chain warp, update warps)
+  cd_stalls_per_move  `cd.queue_stalls` over `cd.moves`: the share of
+                 moves at which the chain warp waited for room in its move
+                 queue (it checks for room only at a step's start, for the
+                 whole step, so a stall is a step that waited, counted at
+                 its first move)
   shrinks, gates, dw_shrinks, dw_gates
                  the `prune.*` counters a job: group-1 producers shrunk,
                  Selects inserted, depthwise convs shrunk, Selects in
@@ -187,11 +192,14 @@ def kernel_alignment(spans, name: str, ops, kernel: str,
 
 
 def launch_readings(counts, n_jobs: int) -> dict:
-    """`cd_bounded_share` over the window, and each `prune.*` counter a
-    job."""
+    """`cd_split_share` and `cd_stalls_per_move` over the window, and each
+    `prune.*` counter a job."""
     launches = counts.get("cd.k1_launches", 0) + counts.get("cd.k2_launches", 0)
-    out = {"cd_bounded_share": (counts.get("cd.bounded_launches", 0) / launches
-                                if launches else None)}
+    moves = counts.get("cd.moves", 0)
+    out = {"cd_split_share": (counts.get("cd.split_launches", 0) / launches
+                              if launches else None),
+           "cd_stalls_per_move": (counts.get("cd.queue_stalls", 0) / moves
+                                  if moves else None)}
     for name in PRUNE_COUNTERS:
         out[name] = counts.get(f"prune.{name}", 0) / n_jobs
     return out
