@@ -268,14 +268,21 @@ def _patches(roll, g_run: Graph, dev_run, cache: sampling.FrozenCache,
                                    compute_dtype=compute_dtype, mesh=mesh)
 
 
-def _residual_context(g_run: Graph, consumer_top: str):
-    """If `consumer_top` feeds an Eltwise sum, return (eltwise top, other
-    bottom tensors): the residual-compensation context (reference appresb,
-    lib/net.py:1641-1683)."""
-    for e in g_run.by_type(LT.ELTWISE):
-        if consumer_top in e.bottoms and e.attr("operation", "sum") == "sum":
-            return e.tops[0], tuple(b for b in e.bottoms if b != consumer_top)
-    return None, ()
+def _layer_target(g_run: Graph, cache: sampling.FrozenCache, consumer: str,
+                  residual_compensate: bool) -> tuple[str, tuple[str, ...]]:
+    """(the frozen tensor `consumer` is fit against, the junction summands
+    subtracted from it). With `residual_compensate`, a consumer feeding an
+    Eltwise sum whose output was frozen fits the block's output less the
+    sum's other bottoms (reference appresb, lib/net.py:1641-1683);
+    otherwise it fits its own output."""
+    top = g_run.layer(consumer).tops[0]
+    if residual_compensate:
+        for e in g_run.by_type(LT.ELTWISE):
+            if top in e.bottoms and e.attr("operation", "sum") == "sum":
+                if e.tops[0] in cache.feats:
+                    return e.tops[0], tuple(b for b in e.bottoms if b != top)
+                break
+    return top, ()
 
 
 def check_supported(graph: Graph, cfg: Config) -> None:
@@ -354,20 +361,19 @@ def _to_host_async(out: prune_mod.FusedLayer, device):
     return host, ev
 
 
-def _pipelined_conv_pass(g_run: Graph, p_run, dev_run, g_out, p_out,
-                         selections, reports, cache: sampling.FrozenCache,
-                         cfg: Config, channel_targets, roll, checkpoint,
-                         resume_i: int, verbose: bool, device,
-                         frontier_fallbacks: list[str],
+def _pipelined_conv_pass(g_run: Graph, p_run, dev_run,
+                         cache: sampling.FrozenCache, cfg: Config,
+                         channel_targets, roll, record, resume_i: int, device,
                          input_targets=None, residual_compensate: bool = True,
                          mesh=None):
     """The pipelined pass (port of the JAX package's `_pipelined_conv_pass`):
     each layer's device work (frontier advance, patch gather, target build
     and `_fused_layer_solve`) is queued with no host sync, behind the layer
-    before; the host's bookkeeping (reading the result, the output-graph
-    rewrite, the checkpoint) trails one layer behind. Chain and DAG
-    frontiers, gate-only consumers and residual compensation (Y built on
-    the device from `features_at(device=True)`) all stay on this path.
+    before; the host's bookkeeping (reading the result, then `record`: the
+    output-graph rewrite, the report, the checkpoint) trails one layer
+    behind. Chain and DAG frontiers, gate-only consumers and residual
+    compensation (Y built on the device from `features_at(device=True)`)
+    all stay on this path.
 
     The running weights are updated on the device: `Wfull` is the
     zero-scattered reconstruction, so the next advance needs no upload.
@@ -382,18 +388,12 @@ def _pipelined_conv_pass(g_run: Graph, p_run, dev_run, g_out, p_out,
     items = _layer_items(g_run, p_run, channel_targets, input_targets,
                          resume_i)
     if not items:
-        return g_out, p_out
+        return
     # the ground truth of every layer, and the row subsample drawn once (the
     # plan gives every layer the same row count), go up before the loop
-    targets = {}
-    for _, consumer, _, _, _ in items:
-        top = g_run.layer(consumer).tops[0]
-        e_top, others = (_residual_context(g_run, top) if residual_compensate
-                         else (None, ()))
-        if e_top is not None and e_top in cache.feats:
-            targets[consumer] = (e_top, others)
-        else:
-            targets[consumer] = (top, ())
+    targets = {consumer: _layer_target(g_run, cache, consumer,
+                                       residual_compensate)
+               for _, consumer, _, _, _ in items}
     feats_dev: dict[str, torch.Tensor] = {}
     with trace.span("pass.upload"):
         for t, _ in targets.values():
@@ -408,7 +408,6 @@ def _pipelined_conv_pass(g_run: Graph, p_run, dev_run, g_out, p_out,
     pending: collections.deque = collections.deque()
 
     def drain_one():
-        nonlocal g_out, p_out
         i, consumer, (out, ev), n_in, target, gate_only, t0 = pending.popleft()
         with trace.span("pass.drain_wait", consumer):
             if ev is not None:
@@ -419,34 +418,15 @@ def _pipelined_conv_pass(g_run: Graph, p_run, dev_run, g_out, p_out,
                 raise _PipelineDegenerate(f"{consumer}: empty fused selection "
                                           "(magnitude fallback needed)")
             Wfull = out.Wfull.numpy()
-            b = out.b.numpy()
             lasso_mod.count_sweeps(out.cd)
             res = prune_mod.PruneResult(
-                keep=keep, W=Wfull[:, keep], b=b, alpha=float(out.alpha),
-                rmse_before=float(out.rmse_before),
+                keep=keep, W=Wfull[:, keep], b=out.b.numpy(),
+                alpha=float(out.alpha), rmse_before=float(out.rmse_before),
                 rmse_after=float(out.rmse_after))
-            p_run[consumer] = {"W": Wfull, "b": b}  # == _scatter_inputs(W, keep)
-            g_out, p_out = prune_mod.apply_pruning(
-                g_out, p_out, consumer, res, shrink_producer=not gate_only)
-            selections[consumer] = keep
-            dt = time.perf_counter() - t0
-            kind = "gate" if gate_only else "prune"
-            reports.append(LayerReport(
-                conv=consumer, target=target, kept=int(keep.sum()),
-                total=int(n_in), alpha=res.alpha, rmse_before=res.rmse_before,
-                rmse_after=res.rmse_after, seconds=dt, kind=kind,
-                grids=int(out.grids)))
-            if verbose:
-                print(f"[{kind}] {consumer}: keep {int(keep.sum())}/{n_in} "
-                      f"rMSE {res.rmse_before:.4f}->{res.rmse_after:.4f} "
-                      f"({dt:.2f}s pipelined)", flush=True)
-            if checkpoint is not None:
-                checkpoint.maybe_save(i, {"p_run": p_run, "g_out": g_out,
-                                          "p_out": p_out,
-                                          "selections": selections,
-                                          "reports": reports,
-                                          "frontier_fallbacks":
-                                              frontier_fallbacks})
+            # Wfull == _scatter_inputs(res.W, keep)
+            record(i, consumer, res, Wfull, n_in, target, gate_only,
+                   "pipelined", seconds=time.perf_counter() - t0,
+                   grids=int(out.grids))
 
     for i, consumer, bottom, target, gate_only in items:
         t0 = time.perf_counter()
@@ -493,7 +473,6 @@ def _pipelined_conv_pass(g_run: Graph, p_run, dev_run, g_out, p_out,
             drain_one()
     while pending:
         drain_one()
-    return g_out, p_out
 
 
 def solve_prune(graph: Graph, params: Mapping[str, Mapping[str, np.ndarray]],
@@ -590,6 +569,37 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
             reports = st["reports"]
             frontier_fallbacks = st.get("frontier_fallbacks", [])
             print(f"[resume] solve_prune continuing after layer {resume_i}")
+
+    def record(i, consumer, res, Wfull, n_in, target, gate_only, how,
+               **timing):
+        """Record a solved layer, for both loops below: the running host
+        weights (`Wfull`, the zero-scattered reconstruction: static
+        shapes), the output graph's physical shrink or, at a junction, its
+        Select gate, the selection, the report (`timing`: the loop's own
+        LayerReport fields, `seconds` among them), the `[prune]`/`[gate]`
+        line (`how`: its timing note) and the checkpoint."""
+        nonlocal g_out, p_out
+        p_run[consumer] = {"W": Wfull, "b": res.b}
+        g_out, p_out = prune_mod.apply_pruning(
+            g_out, p_out, consumer, res, shrink_producer=not gate_only)
+        selections[consumer] = res.keep
+        kind = "gate" if gate_only else "prune"
+        kept = int(res.keep.sum())
+        reports.append(LayerReport(
+            conv=consumer, target=target, kept=kept, total=int(n_in),
+            alpha=res.alpha, rmse_before=res.rmse_before,
+            rmse_after=res.rmse_after, kind=kind, **timing))
+        if verbose:
+            print(f"[{kind}] {consumer}: keep {kept}/{n_in} "
+                  f"rMSE {res.rmse_before:.4f}->{res.rmse_after:.4f} "
+                  f"({timing['seconds']:.2f}s {how})", flush=True)
+        if checkpoint is not None:
+            checkpoint.maybe_save(i, {"p_run": p_run, "g_out": g_out,
+                                      "p_out": p_out,
+                                      "selections": selections,
+                                      "reports": reports,
+                                      "frontier_fallbacks": frontier_fallbacks})
+
     chunk = sampling.clamp_chunk_for_hbm(
         g_run, cache.batch_size,
         max(cfg.sample.device_batch // cache.batch_size, 1))
@@ -615,11 +625,9 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
             and not grpl_block and not cfg.solve.autodet
             and (channel_targets or input_targets)):
         try:
-            g_out, p_out = _pipelined_conv_pass(
-                g_run, p_run, dev_run, g_out, p_out, selections, reports,
-                cache, cfg, channel_targets, roll, checkpoint, resume_i,
-                verbose, device, frontier_fallbacks,
-                input_targets=input_targets,
+            _pipelined_conv_pass(
+                g_run, p_run, dev_run, cache, cfg, channel_targets, roll,
+                record, resume_i, device, input_targets=input_targets,
                 residual_compensate=residual_compensate, mesh=mesh)
         except _PipelineDegenerate as exc:
             print(f"[pipeline] {exc}; restarting on the sequential path")
@@ -639,13 +647,11 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
         t0 = time.perf_counter()
         X = _patches(roll, g_run, dev_run, cache, consumer, device, chunk,
                      frontier_fallbacks, cdt, mesh)
-        top = g_run.layer(consumer).tops[0]
         b2 = torch.as_tensor(np.asarray(p_run[consumer].get(
             "b", np.zeros(p_run[consumer]["W"].shape[0], np.float32)),
             np.float32), device=device)
-        e_top, others = (_residual_context(g_run, top) if residual_compensate
-                         else (None, ()))
-        if e_top is not None and e_top in cache.feats:
+        t, others = _layer_target(g_run, cache, consumer, residual_compensate)
+        if others:
             # fit the branch so the BLOCK output matches ground truth:
             # Y = gt(block) - b - sum of current(other bottoms), in f32 on
             # the device, in the JAX package's order
@@ -663,11 +669,9 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
                            g_run, dev_run, cache.inputs, cache.plan, others,
                            device=device, chunk_batches=chunk,
                            compute_dtype=cdt, mesh=mesh).items()}
-            Y = _ground_truth(feats_dev, cache, e_top, device) - b2
-            for o in others:
-                Y = Y - cur[o]
-        else:
-            Y = _ground_truth(feats_dev, cache, top, device) - b2
+        Y = _ground_truth(feats_dev, cache, t, device) - b2
+        for o in others:
+            Y = Y - cur[o]
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t_solve = time.perf_counter()
@@ -681,32 +685,13 @@ def _solve_prune(graph, params, cache, cfg, channel_targets, input_targets,
             fused=cfg.solve.fused_search, autodet=cfg.solve.autodet,
             layeralpha=cfg.dic.layeralpha, mesh=mesh)
         t_end = time.perf_counter()
-
-        # running graph: zero-scattered reconstruction (static shapes)
-        p_run[consumer] = {"W": _scatter_inputs(res.W, res.keep), "b": res.b}
+        record(i, consumer, res, _scatter_inputs(res.W, res.keep), n_in,
+               target, gate_only,
+               f"= replay {t_solve - t0:.2f} + solve {t_end - t_solve:.2f}",
+               seconds=t_end - t0, replay_seconds=t_solve - t0,
+               solve_seconds=t_end - t_solve)
         dev_run[consumer] = params_to_torch({consumer: p_run[consumer]},
                                             device)[consumer]
-        # output graph: physical shrink, or a Select gate at junctions
-        g_out, p_out = prune_mod.apply_pruning(
-            g_out, p_out, consumer, res, shrink_producer=not gate_only)
-        selections[consumer] = res.keep
-        reports.append(LayerReport(
-            conv=consumer, target=int(target), kept=int(res.keep.sum()),
-            total=int(n_in), alpha=res.alpha, rmse_before=res.rmse_before,
-            rmse_after=res.rmse_after, seconds=t_end - t0,
-            replay_seconds=t_solve - t0, solve_seconds=t_end - t_solve,
-            kind="gate" if gate_only else "prune"))
-        if verbose:
-            print(f"[{reports[-1].kind}] {consumer}: keep {int(res.keep.sum())}/{n_in} "
-                  f"rMSE {res.rmse_before:.4f}->{res.rmse_after:.4f} "
-                  f"({t_end - t0:.2f}s = replay {t_solve - t0:.2f} + solve "
-                  f"{t_end - t_solve:.2f})", flush=True)
-        if checkpoint is not None:
-            checkpoint.maybe_save(i, {"p_run": p_run, "g_out": g_out,
-                                      "p_out": p_out,
-                                      "selections": selections,
-                                      "reports": reports,
-                                      "frontier_fallbacks": frontier_fallbacks})
     if checkpoint is not None:
         checkpoint.clear()
     if fitfc:

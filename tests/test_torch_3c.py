@@ -29,6 +29,7 @@ from channel_pruning_tpu_torch.models import vgg
 from channel_pruning_tpu_torch.ops.forward import run_graph
 from channel_pruning_tpu_torch.pipeline import c3
 from channel_pruning_tpu_torch.sampling import sampler
+from torch_cpu import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 RANKS = {"conv2_1": 9, "conv2_2": 9}

@@ -39,6 +39,7 @@ from channel_pruning_tpu_torch.models import faster_rcnn, resnet, vgg
 from channel_pruning_tpu_torch.ops import forward
 from channel_pruning_tpu_torch.pipeline import c3
 from channel_pruning_tpu_torch.sampling import rolling, sampler
+from torch_cpu import one_thread  # noqa: F401
 
 BF16 = "bfloat16"
 VGG_TARGETS = {"conv1_1": 5, "conv1_2": 6, "conv2_1": 8, "conv2_2": 9,

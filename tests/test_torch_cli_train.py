@@ -21,6 +21,7 @@ from channel_pruning_tpu_torch.convert import params_to_torch
 from channel_pruning_tpu_torch.data.lmdb import Datum, encode_datum, write_lmdb
 from channel_pruning_tpu_torch.io import caffe as cio
 from channel_pruning_tpu_torch.ops.forward import run_graph
+from torch_cpu import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

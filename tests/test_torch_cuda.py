@@ -13,6 +13,7 @@ import torch
 
 from channel_pruning_tpu_torch.kernels import group_cd, lasso_cd
 from channel_pruning_tpu_torch.ops import lasso
+from torch_cpu import one_thread  # noqa: F401
 
 
 @pytest.fixture

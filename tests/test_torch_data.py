@@ -20,6 +20,7 @@ from channel_pruning_tpu.data import pipeline as jax_dp
 from channel_pruning_tpu.io.caffemodel import _put_bytes, _tag, _write_varint
 from channel_pruning_tpu_torch.data import lmdb
 from channel_pruning_tpu_torch.data import pipeline as dp
+from torch_cpu import one_thread  # noqa: F401
 
 Image = pytest.importorskip("PIL.Image")
 

@@ -18,6 +18,7 @@ from channel_pruning_tpu_torch.graph import ir
 from channel_pruning_tpu_torch.graph.ir import LT
 from channel_pruning_tpu_torch.models import resnet, vgg, xception
 from channel_pruning_tpu_torch.ops import forward, patches
+from torch_cpu import one_thread  # noqa: F401
 
 
 def _graph(name, inputs, layers):

@@ -30,6 +30,7 @@ from channel_pruning_tpu_torch.ops.forward import run_graph
 from channel_pruning_tpu_torch.pipeline import c3
 from channel_pruning_tpu_torch.pipeline import prune as prune_mod
 from channel_pruning_tpu_torch.sampling import sampler
+from torch_cpu import one_thread  # noqa: F401
 
 VGG_TARGETS = {"conv1_1": 5, "conv1_2": 6, "conv2_1": 8, "conv2_2": 9,
                "conv3_1": 10}

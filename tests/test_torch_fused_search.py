@@ -13,6 +13,7 @@ import jax.numpy as jnp
 from channel_pruning_tpu.ops import lasso as jax_lasso
 from channel_pruning_tpu_torch.kernels import lasso_cd
 from channel_pruning_tpu_torch.ops import lasso
+from torch_cpu import one_thread  # noqa: F401
 
 
 def _battery_problem(trial):

@@ -6,6 +6,7 @@ SM on an H100 whose SMs sit in GPCs of unequal size."""
 import pytest
 
 from channel_pruning_tpu_torch.kernels import group_cd
+from torch_cpu import one_thread  # noqa: F401
 
 GPCS = (18, 18, 16, 16, 16, 16, 16, 16)     # 132 SMs
 UNEVEN = (18, 18, 18, 18, 16, 16, 14, 14)   # 132 SMs, two small GPCs

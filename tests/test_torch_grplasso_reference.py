@@ -18,10 +18,10 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from channel_pruning_tpu.ops import lasso as jlasso
 from channel_pruning_tpu_torch import reference as ref
+from torch_cpu import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -48,16 +48,6 @@ def designs():
     return ref.load_group_designs()
 
 
-@pytest.fixture
-def one_thread():
-    """The plain version's row loop is bound by op dispatch: more threads
-    only contend with the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def test_committed_designs_load_with_their_provenance(designs):
     meta, got = designs
     assert set(COMMITTED) <= set(got)
@@ -82,7 +72,7 @@ def test_committed_designs_load_with_their_provenance(designs):
 @pytest.mark.parametrize("name", [
     n if n in SMALL else pytest.param(n, marks=pytest.mark.slow)
     for n in COMMITTED])
-def test_port_plain_search_keeps_the_jax_mask(designs, one_thread, name):
+def test_port_plain_search_keeps_the_jax_mask(designs, name):
     d = designs[1][name]
     mask, alpha, count = ref.solve_group(d, "cpu")
     gap = ref.compare_group(d, mask, alpha, count)

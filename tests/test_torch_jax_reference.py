@@ -31,6 +31,7 @@ from channel_pruning_tpu_torch.models.vgg import VGG16_5X_CHANNELS
 from channel_pruning_tpu_torch.pipeline import c3
 from channel_pruning_tpu_torch.pipeline.prune import producer_conv
 from channel_pruning_tpu_torch.sampling.sampler import FrozenCache
+from torch_cpu import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 # 4 x 4 images; the 3C chain on 16 x 4: on 4 x 4 and 8 x 4 (160 and 320

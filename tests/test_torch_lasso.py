@@ -8,6 +8,7 @@ import torch
 
 from channel_pruning_tpu.ops import lasso as jax_lasso
 from channel_pruning_tpu_torch.ops import lasso
+from torch_cpu import one_thread  # noqa: F401
 
 
 def _sparse_problem(seed, n, c, k, dead=0, noise=0.01):

@@ -14,6 +14,7 @@ from channel_pruning_tpu.kernels import lasso_cd as jax_lasso_cd
 from channel_pruning_tpu.ops import lasso as jax_lasso
 from channel_pruning_tpu_torch.kernels import lasso_cd
 from channel_pruning_tpu_torch.ops import lasso
+from torch_cpu import one_thread  # noqa: F401
 
 
 def _sparse_gram(seed, n, c, k, noise=0.01):

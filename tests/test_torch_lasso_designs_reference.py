@@ -19,10 +19,10 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from channel_pruning_tpu.ops import lasso as jlasso
 from channel_pruning_tpu_torch import reference as ref
+from torch_cpu import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -69,16 +69,6 @@ def designs():
     return {p: ref.load_lasso_designs(p) for p in ref.LASSO_DESIGN_PATHS}
 
 
-@pytest.fixture
-def one_thread():
-    """The plain version's coordinate loop is bound by op dispatch: more
-    threads only contend with the other test workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.mark.parametrize("path", sorted(COMMITTED))
 def test_committed_lasso_designs_load_with_their_provenance(designs, path):
     meta, got = designs[path]
@@ -117,7 +107,7 @@ def test_committed_lasso_designs_fit_their_budget():
 @pytest.mark.parametrize("path,name", [
     (p, n) if n == SMALLEST[p] else pytest.param(p, n, marks=pytest.mark.slow)
     for p in sorted(COMMITTED) for n in COMMITTED[p]])
-def test_port_plain_search_keeps_the_jax_mask(designs, one_thread, path, name):
+def test_port_plain_search_keeps_the_jax_mask(designs, path, name):
     d = designs[path][1][name]
     mask, alpha, count = ref.solve_lasso(d, "cpu")
     gap = ref.compare_design(d, mask, alpha, count)

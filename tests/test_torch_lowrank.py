@@ -12,6 +12,7 @@ from channel_pruning_tpu.ops import lowrank as jax_lowrank
 from channel_pruning_tpu.ops import lstsq as jax_lstsq
 from channel_pruning_tpu.ops import oracle
 from channel_pruning_tpu_torch.ops import lowrank, lstsq
+from torch_cpu import one_thread  # noqa: F401
 
 
 def _t(x):

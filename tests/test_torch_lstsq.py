@@ -7,6 +7,7 @@ import torch
 
 from channel_pruning_tpu.ops import lstsq as jax_lstsq
 from channel_pruning_tpu_torch.ops import lstsq
+from torch_cpu import one_thread  # noqa: F401
 
 
 def _problem(seed, n, d, n_out):

@@ -16,6 +16,7 @@ from channel_pruning_tpu_torch.models.resnet import build_tiny_resnet
 from channel_pruning_tpu_torch.models.vgg import build_tiny_vgg
 from channel_pruning_tpu_torch.models.xception import build_tiny_xception
 from channel_pruning_tpu_torch.utils import native
+from torch_cpu import one_thread  # noqa: F401
 
 
 def _assert_same(a, b):

@@ -8,6 +8,7 @@ import ast
 from pathlib import Path
 
 import pytest
+from torch_cpu import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 FILES = sorted((REPO / "channel_pruning_tpu_torch").rglob("*.py")) + \

@@ -20,6 +20,7 @@ from channel_pruning_tpu_torch.pipeline import prune as prune_mod
 from channel_pruning_tpu_torch.sampling import rolling, sampler
 from channel_pruning_tpu_torch.train import evaluate, finetune
 from channel_pruning_tpu_torch.utils.config import FinetuneConfig, default_config
+from torch_cpu import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -28,6 +28,7 @@ from channel_pruning_tpu_torch.models.vgg import build_tiny_vgg
 from channel_pruning_tpu_torch.ops.forward import run_graph
 from channel_pruning_tpu_torch.pipeline import c3
 from channel_pruning_tpu_torch.sampling import sampler
+from torch_cpu import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 TARGETS = {"conv1_1": 5, "conv1_2": 6, "conv2_1": 8, "conv2_2": 9,

@@ -23,6 +23,7 @@ from channel_pruning_tpu_torch.models.resnet import build_tiny_resnet
 from channel_pruning_tpu_torch.ops.forward import run_graph
 from channel_pruning_tpu_torch.pipeline import c3
 from channel_pruning_tpu_torch.sampling import sampler
+from torch_cpu import one_thread  # noqa: F401
 
 
 def _targets(g, p):

@@ -22,6 +22,7 @@ from channel_pruning_tpu_torch.models.resnet import (build_resnet50,
 from channel_pruning_tpu_torch.models.vgg import build_tiny_vgg, build_vgg16
 from channel_pruning_tpu_torch.pipeline import c3
 from channel_pruning_tpu_torch.sampling import rolling, sampler
+from torch_cpu import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 

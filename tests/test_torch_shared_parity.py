@@ -27,6 +27,7 @@ from channel_pruning_tpu_torch.models import resnet, vgg, zoo
 from channel_pruning_tpu_torch.pipeline import c3
 from channel_pruning_tpu_torch.pipeline.checkpoint import SolveCheckpoint
 from channel_pruning_tpu_torch.utils import config, flops
+from torch_cpu import one_thread  # noqa: F401
 
 MODELS = ["vgg16", "resnet50", "digits_vgg", "tiny_vgg", "tiny_resnet",
           "xception", "tiny_xception", "cifar_resnet20", "cifar_plain20",

@@ -37,6 +37,7 @@ from channel_pruning_tpu_torch.ops.forward import run_graph
 from channel_pruning_tpu_torch.pipeline import c3
 from channel_pruning_tpu_torch.pipeline import prune as prune_mod
 from channel_pruning_tpu_torch.sampling import sampler
+from torch_cpu import one_thread  # noqa: F401
 
 
 def _t(a):

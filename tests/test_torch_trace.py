@@ -29,6 +29,7 @@ from channel_pruning_tpu_torch.pipeline import c3, prune
 from channel_pruning_tpu_torch.sampling import sampler
 from channel_pruning_tpu_torch.utils import trace
 from channel_pruning_tpu_torch.utils.config import default_config
+from torch_cpu import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -35,6 +35,7 @@ from channel_pruning_tpu_torch.sampling.sampler import channel_stats
 from channel_pruning_tpu_torch.train import evaluate as ev
 from channel_pruning_tpu_torch.train import finetune as ft
 from channel_pruning_tpu_torch.train.checkpoint import Checkpointer
+from torch_cpu import one_thread  # noqa: F401
 
 
 def _models(name: str, batch: int = 4):

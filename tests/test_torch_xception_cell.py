@@ -24,6 +24,7 @@ from port_bench.configs import xception
 from port_bench.devtrace import DeviceTrace
 from port_bench.metrics import dwconv_ms, dwconv_roofline_pct
 from port_bench.reference import plain
+from torch_cpu import one_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 CELL = "xception.cp2x"
